@@ -5,17 +5,33 @@
 
 Phases, each raising on failure:
   0. print the card (nvidia-smi name, power limit); exit non-zero without CUDA
-  1. build the CUDA kernels of `rick_tpu_torch/csrc` (one nvcc call)
-  2. per kernel: compare with its plain PyTorch version at every shape the
-     256px G/D forward gives it (batch 4, TF32 off), and time both
-  3. the slice: seeded 256px G and D on the card, saved and loaded back as a
-     rosinality {g, g_ema, d} checkpoint, then sample_images on 25 fixed
-     latents, a batch-100 random-noise generation and D on 16 of the images;
-     every kernel must have launched in that run
-  4. the slice vs the plain path: the same weights on the CPU, where the port
-     takes the plain versions; G (fixed latents, constant noise, and a mixing
-     call) and D compared within 1e-3 * max|ref|
+  1. build the CUDA kernels of `rick_tpu_torch/csrc` (one nvcc per source, in parallel)
+  2. per forward kernel: compare with its plain PyTorch version at every shape
+     the 256px G/D forward gives it (batch 4, TF32 off), and time both
+  3. the generation slice: seeded 256px G and D on the card, saved and loaded
+     back as a rosinality {g, g_ema, d} checkpoint, then sample_images on 25
+     fixed latents, a batch-100 random-noise generation and D on 16 of the
+     images; K1, K3 and K4 must have launched in that run
+  4. the generation slice vs the plain path: the same weights on the CPU,
+     where the port takes the plain versions; G (fixed latents, constant
+     noise, and a mixing call) and D compared within 1e-3 * max|ref|
   5. generation img/s at batch 100 and D forward ms at batch 16
+  6. the training kernels at every shape the 256px batch-2 phases give K2:
+     K2 with and without its bias against its plain version, and the grads
+     and double grads of `fused_bias_act` (K1/K2) and `modconv_epilogue`
+     (K3/K2) against plain autograd of their plain versions; K2 timed
+  7. the training slice: seeded 256px G and D, `init_train_state` on the
+     card, `run_iteration` at i = 0, 1, 4, 16 (warmup with R1, a plain
+     iteration, the path phase, R1 and path after warmup), a Fisher round on
+     5 seeded latents and "real" images with its masks merged, and one more
+     iteration (i = 32, every phase) under the masks; losses and params
+     finite, pruned filters zero, frozen filters unchanged, Adam step counts
+     equal to the active iterations, K1, K2 and K3 launched in that run
+  8. the training slice vs the plain path: from the same state (phase 7's,
+     copied to the CPU) and the same draws (made on the CPU), one run of each
+     phase and a Fisher accumulation on the card and on the CPU, compared
+  9. ms per phase at 256px batch 2, the recipe's mix per iteration, the
+     seconds of a Fisher round, peak device memory
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -25,6 +41,7 @@ from __future__ import annotations
 
 import copy
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -34,38 +51,85 @@ from pathlib import Path
 import torch
 
 from rick_tpu_torch.ckpt import load_checkpoint
-from rick_tpu_torch.nn import Discriminator, Generator
+from rick_tpu_torch.nn import Discriminator, DiscriminatorConfig, Generator, GeneratorConfig
 from rick_tpu_torch.ops import (
     _build,
     convt_blur_act,
     convt_blur_act_ref,
     fused_bias_act,
+    fused_bias_act_bwd,
+    fused_bias_act_bwd_ref,
     fused_bias_act_ref,
     launch_counts,
     modconv_epilogue,
     modconv_epilogue_ref,
     reset_launch_counts,
 )
-from rick_tpu_torch.train import sample_images
+from rick_tpu_torch.train import (
+    TrainConfig,
+    accumulate_fims,
+    fisher_round,
+    init_train_state,
+    merge_prune,
+    run_iteration,
+    sample_draws,
+    sample_images,
+)
+from rick_tpu_torch.train import steps
+from rick_tpu_torch.train.adam import exp_avg_sq, step_counts
+from rick_tpu_torch.train.masks import d_final, d_trainable, g_trainable
+from rick_tpu_torch.train.state import trainable_params
 
+DEV = "cuda"
 SIZE = 256
-B = 4  # batch of the per-kernel checks
+B = 4  # batch of the forward per-kernel checks
 GEN_BATCH = 100  # the evaluator's 256px generation batch
 D_BATCH = 16
-SLICE_TOL = 1e-3  # slice vs plain: max|d| <= SLICE_TOL * max|ref|, TF32 off
-# per-kernel: max|d| <= tol * max|ref|.  K1 and K3 are elementwise (at most an
-# FMA contraction apart); K4 sums 9*Cin products in another order than cuDNN.
-KERNEL_TOL = {"fused_bias_act": 1e-6, "modconv_epilogue": 1e-6, "convt_blur_act": 1e-4}
+TRAIN_ITERS = (0, 1, 4, 16)  # then the Fisher round, then MASKED_ITER
+MASKED_ITER = 32
+N_FISHER = 5
+SLICE_TOL = 1e-3  # generation slice vs plain: max|d| <= SLICE_TOL * max|ref|, TF32 off
+# per-kernel: max|d| <= tol * max|ref|.  K1, K2 and K3 are elementwise (at most
+# an FMA contraction apart); K4 sums 9*Cin products in another order than cuDNN.
+KERNEL_TOL = {"fused_bias_act": 1e-6, "fused_bias_act_bwd": 1e-6, "modconv_epilogue": 1e-6, "convt_blur_act": 1e-4}
+# autograd through the kernels vs plain autograd, relative to max|ref|: K2
+# applies the slope before the gain where autograd of the plain version
+# applies it after (an ulp), and the bias, demod, noise and noise-weight
+# grads are sums of up to 8M such terms, which autograd of the plain chain
+# reduces in another order: 1e-5
+GRAD_TOL = 1e-5
+# training slice, card vs CPU (TF32 off).  The two sum every conv in another
+# order, and a pre-activation within rounding of the leaky-ReLU kink may take
+# the other slope, which moves single gradient entries upstream of it; so the
+# check is per tensor, in norm: |card - cpu| / |cpu| for Adam's second moment
+# and the FIMs, relative error for the losses, and for the step each param
+# took (p_after - p_before) |card - cpu| <= STEP_TOL |cpu| + STEP_ATOL * lr *
+# sqrt(n): 1% of the step, or an RMS error of 0.1% of lr per entry, for the
+# steps that are themselves near zero (R1's gradient of a bias, which moves
+# D's input gradient only through the minibatch-stddev layer).  The losses:
+# 1e-3, for the path penalty, which squares a gradient taken through all of G.
+# Adam's v and the FIMs: 1e-2 (5e-3 on the gradient).  The noise weights, the
+# one-element params, whose gradient is one sum over a whole layer that
+# cancels to a small part of its terms: 5e-2 for their step, v and FIM.
+STEP_TOL, STEP_ATOL, V_TOL, FIM_TOL, LOSS_TOL, SCALAR_TOL = 1e-2, 1e-3, 1e-2, 1e-2, 1e-3, 5e-2
 SOURCES = {
     "fused_bias_act": ("rick_tpu_torch/csrc/fused_bias_act.cu", "rick_tpu/ops/pallas_kernels.py:81"),
+    "fused_bias_act_bwd": ("rick_tpu_torch/csrc/fused_bias_act.cu", "rick_tpu/ops/pallas_kernels.py:126"),
     "modconv_epilogue": ("rick_tpu_torch/csrc/modconv_epilogue.cu", "rick_tpu/ops/pallas_kernels.py:176"),
     "convt_blur_act": ("rick_tpu_torch/csrc/convt_blur_act.cu", "rick_tpu/ops/fused_upsample.py:257"),
 }
+# NVIDIA H100 SXM data sheet (dense): HBM 3.35 TB/s; f32 outside the tensor cores 67 TFLOP/s
+PEAK_BYTES_PER_S, PEAK_F32_FLOP_PER_S = 3.35e12, 67e12
 
 
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
+
+
+def tol(t: torch.Tensor, tensor_tol: float) -> float:
+    """The tolerance of a tensor: SCALAR_TOL for a one-element param."""
+    return SCALAR_TOL if t.numel() == 1 else tensor_tol
 
 
 def card_line() -> str:
@@ -94,15 +158,59 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor):
     return d, d / max(float(ref.abs().max()), 1e-30)
 
 
+def norm_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """|got - ref| / |ref| in the Frobenius norm (0 when both are 0)."""
+    d = float((got.double().cpu() - ref.double().cpu()).norm())
+    r = float(ref.double().norm())
+    return d / r if r > 0 else (0.0 if d == 0 else math.inf)
+
+
+def bound(nbytes: float, flops: float):
+    """(least ms, what bounds it) on the card at its published peaks."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def case(name, label, kern, plain, nbytes, flops):
+    return dict(name=name, label=label, kern=kern, plain=plain, nbytes=nbytes, flops=flops)
+
+
+def run_cases(cases) -> dict:
+    """Check every case against its plain version and time both; per kernel,
+    the largest error and the times and bound at its costliest shape (by
+    plain time)."""
+    rows = []
+    with torch.inference_mode():
+        for c in cases:
+            name, label = c["name"], c["label"]
+            got, ref = c["kern"](), c["plain"]()
+            torch.cuda.synchronize()
+            require(got.shape == ref.shape, f"{name} {label}: shape {got.shape} != {ref.shape}")
+            require(bool(torch.isfinite(got).all()), f"{name} {label}: non-finite output")
+            abs_err, rel = rel_err(got, ref)
+            ms, plain_ms = cuda_ms(c["kern"]), cuda_ms(c["plain"])
+            bound_ms, bound_by = bound(c["nbytes"], c["flops"])
+            print(f"  {name:18s} {label:44s} max_abs_err={abs_err:.3e} rel={rel:.3e} "
+                  f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
+            require(rel <= KERNEL_TOL[name], f"{name} {label}: rel err {rel:.3e} > {KERNEL_TOL[name]}")
+            rows.append(dict(kernel=name, shape=label, max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by))
+            del got, ref
+    per_kernel = {}
+    for name in {r["kernel"] for r in rows}:
+        mine = [r for r in rows if r["kernel"] == name]
+        top = max(mine, key=lambda r: r["plain_ms"])
+        per_kernel[name] = dict(top, max_abs_err=max(r["max_abs_err"] for r in mine))
+    return per_kernel
+
+
 # ---------------------------------------------------------------------------
-# phase 2: every kernel at every main-path shape
+# phase 2: the forward kernels at every shape of the 256px forward
 # ---------------------------------------------------------------------------
 
 
-def kernel_cases(gen: torch.Generator):
-    """(kernel name, shape label, kernel call, plain call) at the shapes of
-    the 256px G/D forward, batch B."""
-    dev = "cuda"
+def forward_cases(gen: torch.Generator):
+    dev = DEV
 
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev) * scale
@@ -117,62 +225,37 @@ def kernel_cases(gen: torch.Generator):
     for shape in k1:
         x = randn(*shape)
         b = randn(shape[-1] if len(shape) == 2 else shape[1], scale=0.1)
-        cases.append(("fused_bias_act", str(shape),
-                      lambda x=x, b=b: fused_bias_act(x, b),
-                      lambda x=x, b=b: fused_bias_act_ref(x, b)))
+        cases.append(case("fused_bias_act", str(shape), lambda x=x, b=b: fused_bias_act(x, b),
+                          lambda x=x, b=b: fused_bias_act_ref(x, b), 4 * (2 * x.numel() + b.numel()), 3 * x.numel()))
     # K3: the 7 non-upsample StyledConvs, noise batch B (fresh) and 1 (buffers)
     for C, R in [(512, 4), (512, 8), (512, 16), (512, 32), (512, 64), (256, 128), (128, 256)]:
         out, demod, bias = randn(B, C, R, R), uniform(B, C), randn(C, scale=0.1)
         nw = torch.full((1,), 0.3, device=dev)
         for nb in (B, 1):
-            noise = randn(nb, 1, R, R)
-            cases.append(("modconv_epilogue", f"{(B, C, R, R)} noise batch {nb}",
-                          lambda a=(out, demod, noise, nw, bias): modconv_epilogue(*a),
-                          lambda a=(out, demod, noise, nw, bias): modconv_epilogue_ref(*a)))
+            a = (out, demod, randn(nb, 1, R, R), nw, bias)
+            nbytes = 4 * (2 * out.numel() + demod.numel() + nb * R * R + C + 1)
+            cases.append(case("modconv_epilogue", f"{(B, C, R, R)} noise batch {nb}",
+                              lambda a=a: modconv_epilogue(*a), lambda a=a: modconv_epilogue_ref(*a),
+                              nbytes, 6 * out.numel()))
     # K4: the 6 upsample StyledConvs (input H, Cin -> Cout)
     for H, cin, cout in [(4, 512, 512), (8, 512, 512), (16, 512, 512), (32, 512, 512),
                          (64, 512, 256), (128, 256, 128)]:
         xs = randn(B, cin, H, H)
         w = randn(cout, cin, 3, 3, scale=1.0 / (cin * 9) ** 0.5)
         demod, bias = uniform(B, cout), randn(cout, scale=0.1)
+        y_numel = B * cout * 4 * H * H
+        # the transposed conv's MACs, the 4x4 blur's, and the epilogue
+        flops = 2 * B * cin * cout * 9 * H * H + 2 * 16 * y_numel + 4 * y_numel
         for nb in (B, 1):
-            noise = randn(nb, 1, 2 * H, 2 * H, scale=0.1)
-            a = (xs, w, demod, noise, bias)
-            cases.append(("convt_blur_act", f"{(B, cin, H, H)}->{cout} noise batch {nb}",
-                          lambda a=a: convt_blur_act(*a),
-                          lambda a=a: convt_blur_act_ref(*a)))
+            a = (xs, w, demod, randn(nb, 1, 2 * H, 2 * H, scale=0.1), bias)
+            nbytes = 4 * (xs.numel() + w.numel() + demod.numel() + nb * 4 * H * H + cout + y_numel)
+            cases.append(case("convt_blur_act", f"{(B, cin, H, H)}->{cout} noise batch {nb}",
+                              lambda a=a: convt_blur_act(*a), lambda a=a: convt_blur_act_ref(*a), nbytes, flops))
     return cases
 
 
-def check_kernels() -> dict:
-    """Per kernel: the largest error over its shapes, and the times at its
-    costliest shape (by plain time)."""
-    gen = torch.Generator(device="cuda").manual_seed(1234)
-    rows = []
-    with torch.inference_mode():
-        for name, label, kern, plain in kernel_cases(gen):
-            got, ref = kern(), plain()
-            torch.cuda.synchronize()
-            require(got.shape == ref.shape, f"{name} {label}: shape {got.shape} != {ref.shape}")
-            require(bool(torch.isfinite(got).all()), f"{name} {label}: non-finite output")
-            abs_err, rel = rel_err(got, ref)
-            ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
-            print(f"  {name:17s} {label:40s} max_abs_err={abs_err:.3e} rel={rel:.3e} "
-                  f"ms={ms:.4f} plain_ms={plain_ms:.4f}", flush=True)
-            require(rel <= KERNEL_TOL[name], f"{name} {label}: rel err {rel:.3e} > {KERNEL_TOL[name]}")
-            rows.append(dict(kernel=name, shape=label, max_abs_err=abs_err, ms=ms, plain_ms=plain_ms))
-            del got, ref
-    per_kernel = {}
-    for name in KERNEL_TOL:
-        mine = [r for r in rows if r["kernel"] == name]
-        top = max(mine, key=lambda r: r["plain_ms"])
-        per_kernel[name] = dict(max_abs_err=max(r["max_abs_err"] for r in mine),
-                                ms=top["ms"], plain_ms=top["plain_ms"], shape=top["shape"])
-    return per_kernel
-
-
 # ---------------------------------------------------------------------------
-# phase 3-5: the slice
+# phases 3-5: the generation slice
 # ---------------------------------------------------------------------------
 
 
@@ -186,7 +269,7 @@ def randomize_zero_params(module: torch.nn.Module, gen: torch.Generator) -> None
 
 
 def build_and_reload(tmpdir: str):
-    dev = "cuda"
+    dev = DEV
     gen = torch.Generator(device=dev).manual_seed(0)
     g = Generator(SIZE, rng=gen, device=dev)
     d = Discriminator(SIZE, rng=gen, device=dev)
@@ -208,7 +291,7 @@ def build_and_reload(tmpdir: str):
 
 
 def run_slice(g_ema, d) -> dict:
-    dev = "cuda"
+    dev = DEV
     zgen = torch.Generator(device=dev).manual_seed(2)
     z25 = torch.randn((25, g_ema.cfg.style_dim), generator=zgen, device=dev)
     z100 = torch.randn((GEN_BATCH, g_ema.cfg.style_dim), generator=zgen, device=dev)
@@ -216,17 +299,18 @@ def run_slice(g_ema, d) -> dict:
     reset_launch_counts()
     with torch.inference_mode():
         grid = sample_images(g_ema, z25)
-        imgs, _ = g_ema([z100], rng=torch.Generator(device=dev).manual_seed(3))
+        imgs, _ = g_ema([z100], rng=torch.Generator(device=dev).manual_seed(3), fast=True)
         score, feats = d(imgs[:D_BATCH])
     torch.cuda.synchronize()
     counts = launch_counts()
-    print(f"  launches in the slice run: {counts}", flush=True)
+    print(f"  launches in the generation run: {counts}", flush=True)
     require(tuple(grid.shape) == (25, 3, SIZE, SIZE), f"sample grid shape {tuple(grid.shape)}")
     require(tuple(imgs.shape) == (GEN_BATCH, 3, SIZE, SIZE), f"images shape {tuple(imgs.shape)}")
     require(tuple(score.shape) == (D_BATCH, 1), f"D score shape {tuple(score.shape)}")
     for name, t in [("grid", grid), ("images", imgs), ("score", score)] + [(f"D feat {i}", f) for i, f in enumerate(feats)]:
         require(bool(torch.isfinite(t).all()), f"non-finite values in {name}")
-    require(all(v > 0 for v in counts.values()), f"a kernel did not launch on the main path: {counts}")
+    forward = ("fused_bias_act", "modconv_epilogue", "convt_blur_act")
+    require(all(counts[k] > 0 for k in forward), f"a forward kernel did not launch in generation: {counts}")
     return counts
 
 
@@ -240,16 +324,17 @@ def slice_vs_plain(g_ema, d) -> None:
     worst = 0.0
     with torch.inference_mode():
         runs = {
-            "fixed": lambda g, dev: g([za.to(dev)], return_feats=True),
-            "mixing inject_index=3": lambda g, dev: g([za.to(dev), zb.to(dev)], inject_index=3, return_feats=True),
+            "fixed": lambda g, dev: g([za.to(dev)], return_feats=True, fast=True),
+            "mixing inject_index=3": lambda g, dev: g([za.to(dev), zb.to(dev)], inject_index=3,
+                                                     return_feats=True, fast=True),
         }
         for label, run in runs.items():
             img_c, feats_c = run(g_cpu, "cpu")
-            img_g, feats_g = run(g_ema, "cuda")
+            img_g, feats_g = run(g_ema, DEV)
             pairs = [("image", img_g, img_c)] + [(f"feat {i}", a, b) for i, (a, b) in enumerate(zip(feats_g, feats_c))]
             if label == "fixed":
                 s_c, df_c = d_cpu(img_c)
-                s_g, df_g = d(img_c.cuda())
+                s_g, df_g = d(img_c.to(DEV))
                 pairs += [("D score", s_g, s_c)] + [(f"D feat {i}", a, b) for i, (a, b) in enumerate(zip(df_g, df_c))]
             for name, got, ref in pairs:
                 _, rel = rel_err(got.cpu(), ref)
@@ -258,25 +343,316 @@ def slice_vs_plain(g_ema, d) -> None:
             print(f"  {label}: {len(pairs)} tensors, worst max|d|/max|ref| = {worst:.3e}", flush=True)
 
 
-def measure(g_ema, d, card: str) -> None:
-    dev = "cuda"
+def measure_generation(g_ema, d, card: str) -> None:
+    dev = DEV
     zgen = torch.Generator(device=dev).manual_seed(5)
     z = torch.randn((GEN_BATCH, g_ema.cfg.style_dim), generator=zgen, device=dev)
     nrng = torch.Generator(device=dev).manual_seed(6)
     with torch.inference_mode():
-        g_ema([z], rng=nrng)
+        g_ema([z], rng=nrng, fast=True)
         torch.cuda.synchronize()
         iters = 3
         t0 = time.perf_counter()
         for _ in range(iters):
-            imgs, _ = g_ema([z], rng=nrng)
+            imgs, _ = g_ema([z], rng=nrng, fast=True)
         torch.cuda.synchronize()
         gen_s = (time.perf_counter() - t0) / iters
         x = imgs[:D_BATCH].contiguous()
         d_ms = cuda_ms(lambda: d(x), iters=10)
     rate = GEN_BATCH / gen_s
     print(f"  generation 256px batch {GEN_BATCH}: {rate:.1f} img/s ({gen_s * 1e3:.1f} ms/batch) [{card}]")
-    print(f"  D forward 256px batch {D_BATCH}: {d_ms:.2f} ms [{card}]")
+    print(f"  D forward 256px batch {D_BATCH}: {d_ms:.2f} ms [{card}]", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the training kernels at the 256px batch-2 training shapes
+# ---------------------------------------------------------------------------
+
+# K2's shapes in the 256px batch-2 phases: D's ConvLayers 256^2 .. 4^2 (also
+# G's upsample-layer activations 8^2 .. 256^2), the style MLP and D head; the
+# path phase and the Fisher round run batch 1
+K2_SHAPES = [(2, 128, 256, 256), (2, 256, 128, 128), (2, 512, 64, 64), (2, 512, 32, 32), (2, 512, 16, 16),
+             (2, 512, 8, 8), (2, 512, 4, 4), (2, 512), (1, 512), (1, 128, 256, 256)]
+# K3's: the non-upsample StyledConvs, noise per sample
+K3_SHAPES = [(2, 512, 4, 4), (2, 512, 8, 8), (2, 512, 16, 16), (2, 512, 32, 32), (2, 512, 64, 64),
+             (2, 256, 128, 128), (2, 128, 256, 256)]
+
+
+def k2_cases(gen: torch.Generator):
+    cases = []
+    for shape in K2_SHAPES:
+        g = torch.randn(shape, generator=gen, device=DEV)
+        y = torch.randn(shape, generator=gen, device=DEV)
+        b = torch.randn(shape[-1] if len(shape) == 2 else shape[1], generator=gen, device=DEV)
+        n = g.numel()
+        cases.append(case("fused_bias_act_bwd", f"{shape}", lambda g=g, y=y: fused_bias_act_bwd(g, y),
+                          lambda g=g, y=y: fused_bias_act_bwd_ref(g, y), 4 * 3 * n, 2 * n))
+        cases.append(case("fused_bias_act_bwd", f"{shape} with bias", lambda g=g, y=y, b=b: fused_bias_act_bwd(g, y, b),
+                          lambda g=g, y=y, b=b: fused_bias_act_bwd_ref(g, y, b), 4 * (3 * n + b.numel()), 3 * n))
+    return cases
+
+
+def grads_and_double_grads(f, args, gen):
+    """First grads of <f(args), w> and the grads of <first grads, u> with
+    respect to w and args (zeros where none flows)."""
+    y = f(*args)
+    w = torch.randn(y.shape, generator=gen, device=y.device).requires_grad_(True)
+    first = torch.autograd.grad(y, args, w, create_graph=True)
+    us = [torch.randn(g.shape, generator=gen, device=y.device) for g in first]
+    second = torch.autograd.grad(sum((g * u).sum() for g, u in zip(first, us)), (w,) + tuple(args), allow_unused=True)
+    return [g.detach() for g in first] + [torch.zeros_like(a) if g is None else g.detach()
+                                          for g, a in zip(second, (w,) + tuple(args))]
+
+
+def check_autograd(name: str, label: str, f, f_ref, make_args, seed: int) -> float:
+    """Grads and double grads through the kernels vs plain autograd of the
+    plain version, on the same inputs and cotangents."""
+    worst = 0.0
+    got = grads_and_double_grads(f, make_args(), torch.Generator(device=DEV).manual_seed(seed))
+    want = grads_and_double_grads(f_ref, make_args(), torch.Generator(device=DEV).manual_seed(seed))
+    for i, (a, r) in enumerate(zip(got, want)):
+        abs_err, rel = rel_err(a, r)
+        require(bool(torch.isfinite(a).all()), f"{name} {label}: non-finite grad {i}")
+        require(rel <= GRAD_TOL or abs_err == 0.0, f"{name} {label} grad {i}: rel err {rel:.3e} > {GRAD_TOL}")
+        worst = max(worst, abs_err)
+    return worst
+
+
+def check_training_kernels() -> dict:
+    gen = torch.Generator(device=DEV).manual_seed(77)
+    per_kernel = run_cases(k2_cases(gen))
+    errs = {"fused_bias_act": 0.0, "modconv_epilogue": 0.0}
+    for shape in K2_SHAPES:
+        c = shape[-1] if len(shape) == 2 else shape[1]
+
+        def args(shape=shape, c=c):
+            g = torch.Generator(device=DEV).manual_seed(hash(shape) % 2**31)
+            return (torch.randn(shape, generator=g, device=DEV).requires_grad_(True),
+                    torch.randn(c, generator=g, device=DEV).requires_grad_(True))
+
+        errs["fused_bias_act"] = max(errs["fused_bias_act"], check_autograd(
+            "fused_bias_act", str(shape), fused_bias_act, fused_bias_act_ref, args, 1))
+    for shape in K3_SHAPES:
+        bsz, c, r, _ = shape
+
+        def args(shape=shape, bsz=bsz, c=c, r=r):
+            g = torch.Generator(device=DEV).manual_seed(hash(shape) % 2**31)
+            out = torch.randn(shape, generator=g, device=DEV)
+            demod = torch.rand((bsz, c), generator=g, device=DEV) + 0.5
+            noise = torch.randn((bsz, 1, r, r), generator=g, device=DEV)
+            nw = torch.full((1,), 0.3, device=DEV)
+            bias = torch.randn(c, generator=g, device=DEV) * 0.1
+            # keep the pre-activation off the kink, where the kernel's FMA and
+            # the plain chain could take the other slope
+            pre = out * demod[:, :, None, None] + nw * noise + bias.reshape(1, -1, 1, 1)
+            out = torch.where(pre.abs() < 1e-3, out + 2e-3 / demod[:, :, None, None], out)
+            return tuple(a.requires_grad_(True) for a in (out, demod, noise, nw, bias))
+
+        errs["modconv_epilogue"] = max(errs["modconv_epilogue"], check_autograd(
+            "modconv_epilogue", str(shape), modconv_epilogue, modconv_epilogue_ref, args, 2))
+    print(f"  grads and double grads vs plain autograd, max abs err: {errs}", flush=True)
+    torch.cuda.synchronize()
+    return {"fused_bias_act_bwd": per_kernel["fused_bias_act_bwd"], "autograd_err": errs}
+
+
+# ---------------------------------------------------------------------------
+# phases 7-9: the training slice
+# ---------------------------------------------------------------------------
+
+
+def expected_counts(iters, tcfg: TrainConfig) -> dict:
+    """Adam steps per param group for the iterations `iters`, by rick_tpu's
+    rules: D's final* step in every D and R1 phase, the rest of D only after
+    warmup; G steps in the G phase after warmup and in every path phase."""
+    final = rest = g = 0
+    for i in iters:
+        warm = i < tcfg.warmup_iter
+        d_steps = 1 + (i % tcfg.d_reg_every == 0)
+        final += d_steps
+        rest += 0 if warm else d_steps
+        g += (0 if warm else 1) + (i % tcfg.g_reg_every == 0 and not warm)
+    return {"d_final": final, "d_rest": rest, "g": g}
+
+
+def check_counts(state, iters, tcfg) -> None:
+    want = expected_counts(iters, tcfg)
+    got_g = step_counts(state.g_opt, trainable_params(state.g, g_trainable))
+    got_d = step_counts(state.d_opt, trainable_params(state.d, d_trainable))
+    require(set(got_g.values()) == {want["g"]}, f"G step counts {set(got_g.values())} != {want['g']}")
+    for k, v in got_d.items():
+        w = want["d_final"] if d_final(k) else want["d_rest"]
+        require(v == w, f"D step count of {k}: {v} != {w}")
+
+
+def filter_view(t: torch.Tensor) -> torch.Tensor:
+    """Filters first: the 5-D modulated conv weight is (1, out, in, k, k)."""
+    return t[0] if t.ndim == 5 else t
+
+
+def train_slice(card: str):
+    dev = DEV
+    tcfg = TrainConfig(batch=2, augment=False, warmup_iter=1)
+    wgen = torch.Generator(device=dev).manual_seed(10)
+    g = Generator(SIZE, rng=wgen, device=dev)
+    d = Discriminator(SIZE, rng=wgen, device=dev)
+    randomize_zero_params(g, wgen)
+    randomize_zero_params(d, wgen)
+    state = init_train_state(GeneratorConfig(SIZE), DiscriminatorConfig(SIZE), tcfg, rng=wgen, device=dev, g=g, d=d)
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def finite(label, metrics):
+        for k, v in metrics.items():
+            require(bool(torch.isfinite(v).all()), f"{label}: metric {k} is not finite")
+        for name in ("g", "d", "g_ema", "d_ema"):
+            for k, p in getattr(state, name).named_parameters():
+                require(bool(torch.isfinite(p).all()), f"{label}: {name}.{k} is not finite")
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for i in TRAIN_ITERS:
+        real = torch.randn((tcfg.batch, 3, SIZE, SIZE), generator=gen, device=dev)
+        m = run_iteration(state, tcfg, real, i, gen=gen)
+        finite(f"iteration {i}", m)
+        print(f"  i={i}: " + ", ".join(f"{k} {float(v):.4f}" for k, v in m.items()), flush=True)
+    check_counts(state, TRAIN_ITERS, tcfg)
+
+    noises = torch.randn((N_FISHER, tcfg.latent), generator=gen, device=dev)
+    reals = torch.randn((N_FISHER, 3, SIZE, SIZE), generator=gen, device=dev)
+    gf, gp, df, dp = fisher_round(state.g_ema, state.d_ema, noises, reals, batch=tcfg.batch,
+                                  fisher_quantile=tcfg.fisher_quantile, prune_quantile=tcfg.prune_quantile, gen=gen)
+    state.g_freeze, state.d_freeze = gf, df
+    state.g_prune, state.d_prune = merge_prune(state.g_prune, gp), merge_prune(state.d_prune, dp)
+    n_sel = {k: int(sum(float(v.sum()) for v in m.values())) for k, m in
+             (("g_freeze", gf), ("g_prune", state.g_prune), ("d_freeze", df), ("d_prune", state.d_prune))}
+    print(f"  Fisher round: filters selected {n_sel}", flush=True)
+    require(all(v > 0 for v in n_sel.values()), f"a Fisher mask selected nothing: {n_sel}")
+
+    before = {name: {k: p.detach().clone() for k, p in getattr(state, name).named_parameters()} for name in ("g", "d")}
+    real = torch.randn((tcfg.batch, 3, SIZE, SIZE), generator=gen, device=dev)
+    m = run_iteration(state, tcfg, real, MASKED_ITER, gen=gen)
+    finite(f"masked iteration {MASKED_ITER}", m)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    print(f"  i={MASKED_ITER} under the masks: " + ", ".join(f"{k} {float(v):.4f}" for k, v in m.items()))
+    print(f"  launches in the training run: {counts}", flush=True)
+    check_counts(state, TRAIN_ITERS + (MASKED_ITER,), tcfg)
+    for name, freeze, prune in (("g", state.g_freeze, state.g_prune), ("d", state.d_freeze, state.d_prune)):
+        params = dict(getattr(state, name).named_parameters())
+        for k, pm in prune.items():
+            sel = pm.bool()
+            require(not bool(filter_view(params[k])[sel].any()), f"{name}.{k}: a pruned filter is not zero")
+            frozen = freeze[k].bool() & ~sel
+            require(torch.equal(filter_view(params[k])[frozen], filter_view(before[name][k])[frozen]),
+                    f"{name}.{k}: a frozen filter moved")
+    training = ("fused_bias_act", "fused_bias_act_bwd", "modconv_epilogue")
+    require(all(counts[k] > 0 for k in training), f"a training kernel did not launch in training: {counts}")
+    return state, tcfg, counts
+
+
+def phase_runs(tcfg: TrainConfig, gcfg: GeneratorConfig, cpu_gen: torch.Generator):
+    """(name, draws made on the CPU, fn(state, draws, real) -> losses) for
+    each phase, after warmup."""
+    d_draws = sample_draws(cpu_gen, gcfg, tcfg, tcfg.batch)
+    g_draws = sample_draws(cpu_gen, gcfg, tcfg, tcfg.batch)
+    p_draws = sample_draws(cpu_gen, gcfg, tcfg, max(1, tcfg.batch // tcfg.path_batch_shrink), path=True)
+    return [
+        ("d", d_draws, lambda s, dr, real: [steps.d_phase(s, tcfg, real, dr, False)[0]["d"]]),
+        ("r1", None, lambda s, dr, real: [steps.r1_phase(s, tcfg, real, False)]),
+        ("g", g_draws, lambda s, dr, real: [steps.g_phase(s, tcfg, dr, False, do_ema=True)]),
+        ("path", p_draws, lambda s, dr, real: list(steps.path_phase(s, tcfg, dr, False))),
+    ]
+
+
+def train_vs_plain(state, tcfg) -> dict:
+    """From the same state and draws, each phase on the card and on the CPU;
+    then a Fisher accumulation on both.  Returns the CPU seconds."""
+    gcfg = state.g.cfg
+    base_cpu = copy.deepcopy(state).to("cpu")
+    cpu_gen = torch.Generator().manual_seed(12)
+    real = torch.randn((tcfg.batch, 3, SIZE, SIZE), generator=cpu_gen)
+    cpu_s = {}
+    for name, draws, run in phase_runs(tcfg, gcfg, cpu_gen):
+        on_cpu = copy.deepcopy(base_cpu)
+        on_card = copy.deepcopy(base_cpu).to(DEV)
+        t0 = time.perf_counter()
+        want = run(on_cpu, draws, real)
+        cpu_s[name] = time.perf_counter() - t0
+        got = run(on_card, None if draws is None else draws.to(DEV), real.to(DEV))
+        worst = {"loss": 0.0, "step": 0.0, "v": 0.0}
+        for a, b in zip(got, want):
+            e = abs(float(a) - float(b)) / max(abs(float(b)), 1e-6)
+            worst["loss"] = max(worst["loss"], e)
+            require(e <= LOSS_TOL, f"{name} phase: loss {float(a)} vs {float(b)} ({e:.3e} > {LOSS_TOL})")
+        trained = ("d", d_trainable) if name in ("d", "r1") else ("g", g_trainable)
+        for model in ("g", "g_ema", "d_ema") if name in ("g", "path") else ("d",):
+            start = dict(getattr(base_cpu, model).named_parameters())
+            cur = dict(getattr(on_cpu, model).named_parameters())
+            lr = tcfg.d_lr if model[0] == "d" else tcfg.g_lr
+            lr = lr * (1.0 - tcfg.ema_accum) if model.endswith("_ema") else lr
+            for k, p in getattr(on_card, model).named_parameters():
+                step_cpu = (cur[k].detach() - start[k].detach()).double()
+                step_card = (p.detach().cpu() - start[k].detach()).double()
+                diff, ref = float((step_card - step_cpu).norm()), float(step_cpu.norm())
+                allowed = tol(step_cpu, STEP_TOL) * ref + STEP_ATOL * lr * math.sqrt(step_cpu.numel())
+                worst["step"] = max(worst["step"], diff / allowed)
+                require(diff <= allowed, f"{name} phase: the step of {model}.{k} differs by {diff:.3e} "
+                                         f"(|step| {ref:.3e}; allowed {allowed:.3e})")
+        opt = trained[0] + "_opt"
+        v_cpu = exp_avg_sq(getattr(on_cpu, opt), trainable_params(getattr(on_cpu, trained[0]), trained[1]))
+        v_card = exp_avg_sq(getattr(on_card, opt), trainable_params(getattr(on_card, trained[0]), trained[1]))
+        for k in v_cpu:
+            e = norm_err(v_card[k], v_cpu[k])
+            worst["v"] = max(worst["v"], e / tol(v_cpu[k], V_TOL))
+            require(e <= tol(v_cpu[k], V_TOL), f"{name} phase: exp_avg_sq of {k} differs by {e:.3e}")
+        print(f"  {name} phase: CPU {cpu_s[name]:.1f} s; loss relative error {worst['loss']:.2e}; "
+              f"worst error / allowed: step {worst['step']:.2e}, exp_avg_sq {worst['v']:.2e}", flush=True)
+        del on_cpu, on_card
+
+    noises = torch.randn((2, tcfg.latent), generator=cpu_gen)
+    reals = torch.randn((2, 3, SIZE, SIZE), generator=cpu_gen)
+    t0 = time.perf_counter()
+    want = accumulate_fims(base_cpu.g_ema, base_cpu.d_ema, noises, reals, batch=tcfg.batch, const_noise=True)
+    cpu_s["fims"] = time.perf_counter() - t0
+    g_ema, d_ema = state.g_ema, state.d_ema
+    got = accumulate_fims(g_ema, d_ema, noises.to(DEV), reals.to(DEV), batch=tcfg.batch, const_noise=True)
+    worst = 0.0
+    for a, b in zip(got, want):
+        for k in b:
+            e = norm_err(a[k], b[k])
+            worst = max(worst, e / tol(b[k], FIM_TOL))
+            require(e <= tol(b[k], FIM_TOL), f"FIM of {k} differs by {e:.3e}")
+    print(f"  Fisher accumulation (2 images): CPU {cpu_s['fims']:.1f} s; worst error / allowed {worst:.2e}", flush=True)
+    return cpu_s
+
+
+def measure_training(state, tcfg, card: str) -> None:
+    dev = DEV
+    gcfg = state.g.cfg
+    gen = torch.Generator(device=dev).manual_seed(13)
+    real = torch.randn((tcfg.batch, 3, SIZE, SIZE), generator=gen, device=dev)
+    path_batch = max(1, tcfg.batch // tcfg.path_batch_shrink)
+    runs = {
+        "D": lambda: steps.d_phase(state, tcfg, real, sample_draws(gen, gcfg, tcfg, tcfg.batch), False),
+        "R1": lambda: steps.r1_phase(state, tcfg, real, False),
+        "G": lambda: steps.g_phase(state, tcfg, sample_draws(gen, gcfg, tcfg, tcfg.batch), False, do_ema=True),
+        "path": lambda: steps.path_phase(state, tcfg, sample_draws(gen, gcfg, tcfg, path_batch, path=True), False),
+    }
+    ms = {k: cuda_ms(fn, iters=5) for k, fn in runs.items()}
+    mix = ms["D"] + ms["G"] + ms["R1"] / tcfg.d_reg_every + ms["path"] / tcfg.g_reg_every
+    for k, v in ms.items():
+        print(f"  {k} phase 256px batch {tcfg.batch}: {v:.2f} ms [{card}]")
+    print(f"  recipe mix per iteration (D + G + R1/{tcfg.d_reg_every} + path/{tcfg.g_reg_every}): "
+          f"{mix:.2f} ms [{card}]")
+    noises = torch.randn((N_FISHER, tcfg.latent), generator=gen, device=dev)
+    reals = torch.randn((N_FISHER, 3, SIZE, SIZE), generator=gen, device=dev)
+    fisher = lambda: fisher_round(state.g_ema, state.d_ema, noises, reals, batch=tcfg.batch,  # noqa: E731
+                                  fisher_quantile=tcfg.fisher_quantile, prune_quantile=tcfg.prune_quantile, gen=gen)
+    fisher()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fisher()
+    torch.cuda.synchronize()
+    print(f"  Fisher round ({N_FISHER} images): {time.perf_counter() - t0:.3f} s [{card}]")
     print(f"  peak device memory of the run: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
 
 
@@ -288,6 +664,7 @@ def main() -> int:
         return 1
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.perf_counter()
 
     print("[1] build", flush=True)
     t0 = time.perf_counter()
@@ -297,26 +674,50 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
 
-    print(f"[2] kernels vs plain, batch {B}, TF32 off", flush=True)
-    per_kernel = check_kernels()
+    print(f"[2] forward kernels vs plain, batch {B}, TF32 off", flush=True)
+    per_kernel = run_cases(forward_cases(torch.Generator(device=DEV).manual_seed(1234)))
 
-    print("[3] slice: 256px G/D, checkpoint round trip, sample grid, batch-100 generation, D", flush=True)
+    print("[3] generation slice: 256px G/D, checkpoint round trip, sample grid, batch-100 generation, D", flush=True)
     with tempfile.TemporaryDirectory() as tmpdir:
         g_ema, d = build_and_reload(tmpdir)
-    counts = run_slice(g_ema, d)
+    gen_counts = run_slice(g_ema, d)
 
-    print(f"[4] slice vs plain (CPU), tolerance {SLICE_TOL} * max|ref|", flush=True)
+    print(f"[4] generation slice vs plain (CPU), tolerance {SLICE_TOL} * max|ref|", flush=True)
     slice_vs_plain(g_ema, d)
 
-    print("[5] timing", flush=True)
-    measure(g_ema, d, card)
+    print("[5] generation timing", flush=True)
+    measure_generation(g_ema, d, card)
+    del g_ema, d
+
+    print(f"[6] training kernels vs plain at the 256px batch-2 shapes, TF32 off, tolerance {GRAD_TOL} * max|ref|",
+          flush=True)
+    trained = check_training_kernels()
+    per_kernel["fused_bias_act_bwd"] = trained["fused_bias_act_bwd"]
+    for name, err in trained["autograd_err"].items():
+        per_kernel[name]["max_abs_err"] = max(per_kernel[name]["max_abs_err"], err)
+
+    print(f"[7] training slice: 256px, batch 2, iterations {TRAIN_ITERS}, Fisher round, iteration {MASKED_ITER} "
+          "under the masks", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    state, tcfg, train_counts = train_slice(card)
+
+    print("[8] training slice vs plain (CPU) at 256px: each phase and a Fisher accumulation", flush=True)
+    cpu_s = train_vs_plain(state, tcfg)
+    print(f"  CPU seconds of the four phases: {sum(v for k, v in cpu_s.items() if k != 'fims'):.1f}", flush=True)
+
+    print("[9] training timing", flush=True)
+    measure_training(state, tcfg, card)
+    print(f"  chip_smoke total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         k = per_kernel[name]
+        launches = gen_counts[name] if name == "convt_blur_act" else train_counts[name]
         kernels.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces, launches=counts[name],
-            max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"], shape=k["shape"],
+            name=name, route="cuda", source=source, replaces=replaces, launches=launches,
+            max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+            bound_by=k["bound_by"], library_ms=None, shape=k["shape"],
+            run="generation" if name == "convt_blur_act" else "training",
         ))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

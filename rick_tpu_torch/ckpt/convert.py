@@ -1,5 +1,6 @@
-"""rick_tpu parameter pytrees -> the port's state dicts, and rosinality `.pt`
-checkpoint loading.  Port of `rick_tpu/ckpt/convert.py`.
+"""rick_tpu parameter pytrees and train states -> the port's state dicts and
+`TrainState`, and rosinality `.pt` checkpoint loading.  Port of
+`rick_tpu/ckpt/convert.py`.
 
 The converters take `rick_tpu`'s params as nested dicts and lists of arrays
 (numpy, or anything `np.asarray` reads) and work in numpy only, so this
@@ -27,8 +28,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from rick_tpu_torch.nn.discriminator import DiscriminatorConfig
-from rick_tpu_torch.nn.generator import GeneratorConfig
+from rick_tpu_torch.nn.discriminator import Discriminator, DiscriminatorConfig
+from rick_tpu_torch.nn.generator import Generator, GeneratorConfig
+from rick_tpu_torch.train.masks import d_trainable, g_trainable
+from rick_tpu_torch.train.state import TrainConfig, TrainState, init_train_state, trainable_params
 
 
 def _n(x) -> np.ndarray:
@@ -83,6 +86,83 @@ def discriminator_state_dict_from_jax(cfg: DiscriminatorConfig, params) -> Dict[
         sd[f"final_linear.{i}.weight"] = _n(layer["weight"])
         sd[f"final_linear.{i}.bias"] = _n(layer["bias"])
     return sd
+
+
+def g_masks_from_jax(masks) -> Dict[str, np.ndarray]:
+    """`rick_tpu` G masks {"convs": [{weight, mod_w, mod_b}]} -> {name: array}."""
+    out = {}
+    for i, m in enumerate(masks["convs"]):
+        out[f"convs.{i}.conv.weight"] = _n(m["weight"])
+        out[f"convs.{i}.conv.modulation.weight"] = _n(m["mod_w"])
+        out[f"convs.{i}.conv.modulation.bias"] = _n(m["mod_b"])
+    return out
+
+
+_D_MASK_KEYS = {
+    "conv1_w": "conv1.0.weight", "conv1_b": "conv1.1.bias", "conv2_w": "conv2.1.weight",
+    "conv2_b": "conv2.2.bias", "skip_w": "skip.1.weight",
+}
+
+
+def d_masks_from_jax(masks) -> Dict[str, np.ndarray]:
+    """`rick_tpu` D masks {"convs": [{conv1_w, ...}]} for ResBlocks 1.. ->
+    {name: array}."""
+    return {
+        f"convs.{b}.{name}": _n(m[key])
+        for b, m in enumerate(masks["convs"], start=1)
+        for key, name in _D_MASK_KEYS.items()
+    }
+
+
+def _load_adam(opt: torch.optim.Adam, params, v_sd, count_sd) -> None:
+    """`rick_tpu` Adam state -> torch's: v -> exp_avg_sq, count -> step.  A
+    param whose count is 0 never stepped and keeps an empty state, as in
+    torch.  exp_avg is the last gradient when beta1 = 0 and is overwritten at
+    the next step, so it starts at zero."""
+    for name, p in params.items():
+        count = float(np.asarray(count_sd[name]).reshape(-1)[0])
+        if count > 0:
+            opt.state[p] = {
+                "step": torch.tensor(count, dtype=torch.float32),
+                "exp_avg": torch.zeros_like(p),
+                "exp_avg_sq": torch.as_tensor(v_sd[name]).to(p.device).reshape(p.shape).clone(),
+            }
+
+
+def train_state_from_jax(
+    gcfg: GeneratorConfig, dcfg: DiscriminatorConfig, state_np, *, tcfg: TrainConfig, device="cuda",
+) -> TrainState:
+    """`rick_tpu`'s train state (the dict of `init_train_state`, its arrays
+    as numpy) -> the port's `TrainState` on `device`: the four models, both
+    Adam states, the four mask sets and the scalars."""
+    rng = torch.Generator(device=device).manual_seed(0)  # overwritten below
+    gsd = lambda tree: generator_state_dict_from_jax(gcfg, tree)  # noqa: E731
+    dsd = lambda tree: discriminator_state_dict_from_jax(dcfg, tree)  # noqa: E731
+
+    def load(module, sd):
+        module.load_state_dict({k: torch.tensor(v) for k, v in sd.items()}, strict=True)
+        return module
+
+    g = load(Generator(gcfg.size, gcfg.style_dim, gcfg.n_mlp, gcfg.channel_multiplier, gcfg.blur_kernel,
+                       gcfg.lr_mlp, rng=rng, device=device), gsd(state_np["g"]))
+    d = load(Discriminator(dcfg.size, dcfg.channel_multiplier, dcfg.blur_kernel, dcfg.stddev_group,
+                           dcfg.stddev_feat, rng=rng, device=device), dsd(state_np["d"]))
+    state = init_train_state(gcfg, dcfg, tcfg, rng=rng, device=device, g=g, d=d)
+    load(state.g_ema, gsd(state_np["g_ema"]))
+    load(state.d_ema, dsd(state_np["d_ema"]))
+    _load_adam(state.g_opt, trainable_params(g, g_trainable),
+               gsd(state_np["g_opt"]["v"]), gsd(state_np["g_opt"]["count"]))
+    _load_adam(state.d_opt, trainable_params(d, d_trainable),
+               dsd(state_np["d_opt"]["v"]), dsd(state_np["d_opt"]["count"]))
+
+    def tensors(masks):
+        return {k: torch.tensor(v, device=device) for k, v in masks.items()}
+
+    state.g_freeze, state.g_prune = (tensors(g_masks_from_jax(state_np[k])) for k in ("g_freeze", "g_prune"))
+    state.d_freeze, state.d_prune = (tensors(d_masks_from_jax(state_np[k])) for k in ("d_freeze", "d_prune"))
+    for k in ("mean_path_length", "ada_p", "ada_stats", "r_t"):
+        setattr(state, k, torch.tensor(_n(state_np[k]), device=device))
+    return state
 
 
 def merge_state_dict_lenient(module: nn.Module, loaded_sd: Dict) -> nn.Module:

@@ -9,10 +9,12 @@ state dict.
 Every constructor that draws weights takes `rng`, a `torch.Generator` on the
 module's `device`: no global RNG state is used.
 
-On a CUDA tensor, `StyledConv` runs through the fused kernels:
-the upsample branch through `convt_blur_act`, the other branch (with noise)
-through `modconv_epilogue`; every activation elsewhere through
-`fused_bias_act`.  On a CPU tensor all of it is plain PyTorch.
+`StyledConv` runs through the fused kernels: the upsample branch through
+`convt_blur_act` when the caller asks for it (`fast=True`, forward only, as
+in JAX), else through the differentiable chain; the other branch (with
+noise) through `modconv_epilogue`; every activation elsewhere through
+`fused_bias_act`.  Each kernel wrapper takes its plain version on a CPU
+tensor.
 """
 
 from __future__ import annotations
@@ -208,7 +210,13 @@ class ScaledLeakyReLU(nn.Module):
 
 class StyledConv(nn.Module):
     """ModulatedConv2d + NoiseInjection + FusedLeakyReLU.  `noise` is
-    (B|1, 1, H', W') at the output resolution, or None."""
+    (B|1, 1, H', W') at the output resolution, or None.
+
+    `fast=True` sends the upsample branch through `convt_blur_act` (K4,
+    forward only: for generation); `fast=False`, the default as in JAX, takes
+    the training chain conv_transpose2d -> demod -> blur -> noise ->
+    FusedLeakyReLU.  The branch without upsample and with noise takes
+    `modconv_epilogue` either way."""
 
     def __init__(
         self, in_ch: int, out_ch: int, kernel_size: int, style_dim: int, *,
@@ -223,8 +231,8 @@ class StyledConv(nn.Module):
         self.noise = NoiseInjection(device=device)
         self.activate = FusedLeakyReLU(out_ch, device=device)
 
-    def forward(self, x, style, noise=None):
-        if x.device.type == "cuda" and self.conv.upsample:
+    def forward(self, x, style, noise=None, *, fast: bool = False):
+        if fast and self.conv.upsample:
             xs, weight, demod = self.conv.modulate(x, style)
             h2, w2 = 2 * x.shape[2], 2 * x.shape[3]
             if noise is None:
@@ -235,7 +243,7 @@ class StyledConv(nn.Module):
                 xs, weight, demod, noise_s, self.activate.bias,
                 blur_kernel=self.conv.blur_kernel,
             )
-        if x.device.type == "cuda" and noise is not None:
+        if not self.conv.upsample and noise is not None:
             out, demod = self.conv(x, style, defer_demod=True)
             return modconv_epilogue(out, demod, noise, self.noise.weight, self.activate.bias)
         out = self.conv(x, style)

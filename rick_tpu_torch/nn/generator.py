@@ -172,10 +172,14 @@ class Generator(nn.Module):
         input_is_latent: bool = False,
         return_latents: bool = False,
         return_feats: bool = False,
+        fast: bool = False,
     ):
         """Returns (image, aux): aux is the latent (return_latents), the list
         of StyledConv outputs (return_feats), or None.  `rng=None` and
-        `noise=None` select the registered constant noise buffers."""
+        `noise=None` select the registered constant noise buffers.
+        `fast=True` runs the upsample StyledConvs through the fused
+        `convt_blur_act` kernel, which is forward only: for generation, not
+        for a pass that is differentiated."""
         latent = self.make_latent(
             styles,
             inject_index=inject_index,
@@ -192,7 +196,7 @@ class Generator(nn.Module):
         skip = self.to_rgb1(out, latent[:, 1])
         i = 1
         for block, to_rgb in enumerate(self.to_rgbs):
-            out = self.convs[2 * block](out, latent[:, i], noise[2 * block + 1])
+            out = self.convs[2 * block](out, latent[:, i], noise[2 * block + 1], fast=fast)
             feats.append(out)
             out = self.convs[2 * block + 1](out, latent[:, i + 1], noise[2 * block + 2])
             feats.append(out)

@@ -1,10 +1,12 @@
 """Build and load the CUDA kernels of `rick_tpu_torch/csrc/`.
 
-At first use, every `csrc/*.cu` is compiled by ONE `nvcc` call into a shared
-library with a plain C interface under `build/rick_tpu_torch/` at the repo
-root, and loaded with `ctypes`.  No PyTorch header is included, so the build
-takes seconds.  The library's file name carries a hash of the sources and the
-flags: an edited source builds anew, an unchanged one loads the existing file.
+At first use, every `csrc/*.cu` is compiled into a shared library of its own
+with a plain C interface, one `nvcc` process per source, all started
+together, into one directory under `build/rick_tpu_torch/` at the repo root;
+the libraries are loaded with `ctypes`.  No PyTorch header is included, so
+the build takes seconds.  The directory's name carries a hash of the sources
+and the flags: an edited source builds anew, an unchanged one loads the
+existing files.
 
 Every entry point takes its pointers and the CUDA stream as `void*`, launches
 on the stream it is given, and returns `cudaGetLastError()`; `check()` raises
@@ -16,8 +18,10 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import shutil
 import subprocess
 import time
+import types
 from pathlib import Path
 from typing import List, Optional
 
@@ -37,6 +41,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     # x, bias, y, n, C, inner, slope, scale, stream
     "rick_fused_bias_act": [_P, _P, _P, _L, _I, _L, _F, _F, _P],
+    # g, y, bias (or null), out, n, C, inner, slope, scale, stream
+    "rick_fused_bias_act_bwd": [_P, _P, _P, _P, _L, _I, _L, _F, _F, _P],
     # out, demod, noise, noise_weight, bias, y, B, C, HW, noise_batched, slope, scale, stream
     "rick_modconv_epilogue": [_P, _P, _P, _P, _P, _P, _I, _I, _L, _I, _F, _F, _P],
     # xs, wt, demod, noise, bias, y, N, Cin, Cout, H, W, noise_batched,
@@ -47,7 +53,7 @@ SIGNATURES = {
     ],
 }
 
-_lib: Optional[ctypes.CDLL] = None
+_lib: Optional[types.SimpleNamespace] = None
 build_seconds: Optional[float] = None
 build_log: str = ""
 
@@ -64,48 +70,65 @@ def nvcc_path() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
-def library_path() -> Path:
+def build_path() -> Path:
+    """The directory of this build, named by a hash of the sources and flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in sources() + sorted(CSRC.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    return BUILD_DIR / f"librick_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"kernels_{h.hexdigest()[:16]}"
 
 
-def nvcc_command(out: Path) -> List[str]:
-    return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), *map(str, sources())]
+def nvcc_command(src: Path, out: Path) -> List[str]:
+    return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(src)]
 
 
 def build() -> Path:
-    """Compile the library unless a build of the same sources exists."""
+    """Compile one library per source, in parallel, unless a build of the
+    same sources exists.  Returns the build's directory."""
     global build_seconds, build_log
-    out = library_path()
+    out = build_path()
     if out.exists():
         build_seconds = 0.0
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    tmp.mkdir(parents=True)
     t0 = time.perf_counter()
-    proc = subprocess.run(nvcc_command(tmp), capture_output=True, text=True)
+    procs = [
+        (src, subprocess.Popen(nvcc_command(src, tmp / f"lib{src.stem}.so"), stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT, text=True))
+        for src in sources()
+    ]
+    logs, failed = [], []
+    for src, proc in procs:
+        logs.append(f"== {src.name}\n{proc.communicate()[0]}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode})")
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
-    (BUILD_DIR / "build.log").write_text(build_log)
+    build_log = "".join(logs)
+    if failed:
+        shutil.rmtree(tmp)
+        raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{build_log}")
+    (tmp / "build.log").write_text(build_log)
+    if out.exists():  # another process finished the same build first
+        shutil.rmtree(tmp)
+    else:
+        os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
     return out
 
 
-def lib() -> ctypes.CDLL:
-    """The loaded kernel library, built at first call."""
+def lib() -> types.SimpleNamespace:
+    """The kernels' entry points, by name, built at first call."""
     global _lib
     if _lib is None:
-        handle = ctypes.CDLL(str(build()))
+        handles = [ctypes.CDLL(str(p)) for p in sorted(build().glob("*.so"))]
+        entries = {}
         for name, argtypes in SIGNATURES.items():
-            fn = getattr(handle, name)
+            fn = next(getattr(h, name) for h in handles if hasattr(h, name))
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        _lib = handle
+            entries[name] = fn
+        _lib = types.SimpleNamespace(**entries)
     return _lib
 
 

@@ -2,9 +2,10 @@
 
     y = leaky_relu(x + bias[c], negative_slope) * scale
 
-with the bias on the last dim of a 2-D input and on dim 1 otherwise.  A CPU
-tensor takes the plain PyTorch version; a CUDA tensor launches the
-`fused_bias_act` kernel (`ops/kernels.py`).
+with the bias on the last dim of a 2-D input and on dim 1 otherwise, through
+the twice-differentiable `FusedBiasAct` (`ops/kernels.py`): a CPU tensor takes
+the plain PyTorch version, a CUDA tensor launches the `fused_bias_act` kernel
+forward and the `fused_bias_act_bwd` kernel backward.
 """
 
 from __future__ import annotations

@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from rick_tpu_torch.ops import _build
-from rick_tpu_torch.ops.kernels import _require, check_cuda_f32
+from rick_tpu_torch.ops.kernels import _require, check_cuda_f32, forbid_autograd
 from rick_tpu_torch.ops.resample import blur
 
 
@@ -88,10 +88,9 @@ def convt_blur_act(
     if act_bias is None:
         act_bias = torch.zeros(Cout, device=xs.device)
     _require(tuple(act_bias.shape) == (Cout,), f"convt_blur_act: bias {tuple(act_bias.shape)} != ({Cout},)")
-    check_cuda_f32(
-        "convt_blur_act", xs.device,
-        xs=xs, weight=weight, demod=demod, noise=noise, act_bias=act_bias,
-    )
+    tensors = dict(xs=xs, weight=weight, demod=demod, noise=noise, act_bias=act_bias)
+    check_cuda_f32("convt_blur_act", xs.device, **tensors)
+    forbid_autograd("convt_blur_act", **tensors)
     # (Cout, Cin, 3, 3) -> (Cin, 9, Cout): a block's 32 output channels of one
     # (ci, tap) are one contiguous run
     wt = weight.permute(1, 2, 3, 0).contiguous()

@@ -1,19 +1,27 @@
-"""Fused bias + leaky-ReLU and the modconv epilogue: CUDA kernels and their
-plain PyTorch versions.
+"""Fused bias + leaky-ReLU, its backward, and the modconv epilogue: CUDA
+kernels, their plain PyTorch versions, and the autograd Functions around them.
 
-Port of the two Pallas kernels of `rick_tpu/ops/pallas_kernels.py`:
+Port of the Pallas kernels of `rick_tpu/ops/pallas_kernels.py`:
 
-  * `fused_bias_act`   <- `fused_bias_act_pallas` forward (`_fba_fwd_kernel`)
+  * `fused_bias_act`     (K1) <- `fused_bias_act_pallas` forward (`_fba_fwd_kernel`)
         y = leaky_relu(x + bias[c], slope) * scale
-  * `modconv_epilogue` <- `modconv_epilogue_pallas` forward (`_epi_fwd_kernel`)
+  * `fused_bias_act_bwd` (K2) <- `fused_bias_act_pallas` backward (`_fba_bwd_kernel`)
+        gx = where(y >= 0, v, slope * v) * scale,  v = g (+ bias[c])
+  * `modconv_epilogue`   (K3) <- `modconv_epilogue_pallas` forward (`_epi_fwd_kernel`)
         y = leaky_relu(out * demod[b,c] + nw * noise[b|0,0,h,w] + bias[c], slope) * scale
 
-Each wrapper takes its plain version for a tensor on the CPU, launches its
-kernel (`csrc/fused_bias_act.cu`, `csrc/modconv_epilogue.cu`) for a CUDA
-tensor, and raises on anything else.  The kernels are forward only: called
-where autograd would record them, the wrappers raise NotImplementedError
-rather than return a tensor without a gradient.  `<wrapper>.launches` counts
-kernel launches.
+Each kernel wrapper takes its plain version for a tensor on the CPU, launches
+its kernel (`csrc/fused_bias_act.cu`, `csrc/modconv_epilogue.cu`) for a CUDA
+tensor, and raises on anything else.  `<wrapper>.launches` counts kernel
+launches.
+
+`fused_bias_act` and `modconv_epilogue` are differentiable twice, as R1 and
+the path-length regularizer need: `FusedBiasAct`'s backward is the Function
+`FusedBiasActBackward` (K2 and a bias sum), whose own backward is K2 again
+with the bias sum's cotangent as the bias (rosinality's
+`FusedLeakyReLUFunctionBackward` pattern); `ModconvEpilogue`'s backward is
+`_epi_bwd_rule` written with `FusedBiasActBackward` and differentiable torch
+ops.  The sign of the activation comes from the saved output, as in JAX.
 """
 
 from __future__ import annotations
@@ -38,8 +46,19 @@ def _bias_view(bias: torch.Tensor, ndim: int) -> torch.Tensor:
     return bias.reshape((1, -1) + (1,) * (ndim - 2))
 
 
+def _bias_sum_dims(ndim: int) -> tuple:
+    """The dims a bias gradient sums over: all but the bias dim."""
+    return (0,) if ndim == 2 else (0,) + tuple(range(2, ndim))
+
+
 def fused_bias_act_ref(x, bias, slope: float = 0.2, scale: float = SQRT2):
     return _lrelu(x + _bias_view(bias, x.ndim), slope, scale)
+
+
+def fused_bias_act_bwd_ref(g, y, bias=None, slope: float = 0.2, scale: float = SQRT2):
+    """K2's plain version: where(y >= 0, v, slope * v) * scale, v = g (+ bias)."""
+    v = g if bias is None else g + _bias_view(bias, g.ndim)
+    return torch.where(y >= 0, v, v * slope) * scale
 
 
 def modconv_epilogue_ref(out, demod, noise, noise_weight, bias, slope: float = 0.2, scale: float = SQRT2):
@@ -53,29 +72,44 @@ def _require(cond: bool, msg: str) -> None:
 
 
 def check_cuda_f32(name: str, device: torch.device, **tensors) -> None:
-    """Device, dtype, contiguity and autograd checks shared by the wrappers."""
+    """Device, dtype and contiguity checks shared by the wrappers."""
     for k, t in tensors.items():
         _require(t.device == device, f"{name}: {k} is on {t.device}, expected {device}")
         _require(t.dtype == torch.float32, f"{name}: {k} has dtype {t.dtype}, expected float32")
         _require(t.is_contiguous(), f"{name}: {k} must be contiguous")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors.values()):
+
+
+def forbid_autograd(name: str, **tensors) -> None:
+    """For a forward-only kernel: raise where autograd would record the call,
+    rather than return a tensor without a gradient."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors.values()):
         raise NotImplementedError(
-            f"{name}: the CUDA kernel is forward only; run it under torch.no_grad() "
+            f"{name}: the CUDA kernel is not differentiable here; run it under torch.no_grad() "
             "or torch.inference_mode()"
         )
 
 
-def fused_bias_act(x: torch.Tensor, bias: torch.Tensor, slope: float = 0.2, scale: float = SQRT2):
-    """y = leaky_relu(x + bias, slope) * scale; bias (C,) on the last dim of a
-    2-D x and on dim 1 of an N-D x (N >= 3)."""
+def _channels(x: torch.Tensor) -> int:
+    return x.shape[-1] if x.ndim == 2 else x.shape[1]
+
+
+def _fba_shape_args(name: str, x: torch.Tensor, bias) -> tuple:
+    """(C, inner) of the row layout, after the shape checks."""
+    _require(x.device.type == "cuda", f"{name}: unsupported device {x.device}")
+    _require(x.ndim >= 2, f"{name}: x must be at least 2-D, got {tuple(x.shape)}")
+    C = _channels(x)
+    if bias is not None:
+        _require(tuple(bias.shape) == (C,), f"{name}: bias {tuple(bias.shape)} != ({C},)")
+    inner = 1 if x.ndim == 2 else math.prod(x.shape[2:])
+    return C, inner
+
+
+def _fused_bias_act_fwd(x: torch.Tensor, bias: torch.Tensor, slope: float, scale: float) -> torch.Tensor:
+    """K1, or its plain version on the CPU; no autograd."""
     if x.device.type == "cpu":
         return fused_bias_act_ref(x, bias, slope, scale)
-    _require(x.device.type == "cuda", f"fused_bias_act: unsupported device {x.device}")
-    _require(x.ndim >= 2, f"fused_bias_act: x must be at least 2-D, got {tuple(x.shape)}")
-    C = x.shape[-1] if x.ndim == 2 else x.shape[1]
-    _require(tuple(bias.shape) == (C,), f"fused_bias_act: bias {tuple(bias.shape)} != ({C},)")
+    C, inner = _fba_shape_args("fused_bias_act", x, bias)
     check_cuda_f32("fused_bias_act", x.device, x=x, bias=bias)
-    inner = 1 if x.ndim == 2 else math.prod(x.shape[2:])
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
@@ -88,22 +122,86 @@ def fused_bias_act(x: torch.Tensor, bias: torch.Tensor, slope: float = 0.2, scal
     return y
 
 
+def fused_bias_act_bwd(g: torch.Tensor, y: torch.Tensor, bias=None, slope: float = 0.2, scale: float = SQRT2):
+    """K2: gx = where(y >= 0, v, slope * v) * scale with v = g, or v = g +
+    bias[c] (bias (C,) on the last dim of a 2-D g, on dim 1 otherwise).
+
+    Not recorded by autograd itself: `FusedBiasActBackward` is its
+    differentiable form."""
+    if g.device.type == "cpu":
+        return fused_bias_act_bwd_ref(g, y, bias, slope, scale)
+    C, inner = _fba_shape_args("fused_bias_act_bwd", g, bias)
+    _require(y.shape == g.shape, f"fused_bias_act_bwd: y {tuple(y.shape)} != g {tuple(g.shape)}")
+    tensors = dict(g=g, y=y) if bias is None else dict(g=g, y=y, bias=bias)
+    check_cuda_f32("fused_bias_act_bwd", g.device, **tensors)
+    forbid_autograd("fused_bias_act_bwd", **tensors)
+    out = torch.empty_like(g)
+    if g.numel() == 0:
+        return out
+    code = _build.lib().rick_fused_bias_act_bwd(
+        g.data_ptr(), y.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
+        g.numel(), C, inner, float(slope), float(scale), _build.stream_ptr(g.device),
+    )
+    _build.check(code, "fused_bias_act_bwd")
+    fused_bias_act_bwd.launches += 1
+    return out
+
+
+fused_bias_act_bwd.launches = 0
+
+
+class FusedBiasActBackward(torch.autograd.Function):
+    """(g, y) -> (gx, gb): the backward of `FusedBiasAct` as a Function of
+    its own, so that it can be differentiated once more."""
+
+    @staticmethod
+    def forward(ctx, g, y, slope: float, scale: float):
+        gx = fused_bias_act_bwd(g.contiguous(), y, None, slope, scale)
+        gb = gx.sum(dim=_bias_sum_dims(gx.ndim))
+        ctx.save_for_backward(y)
+        ctx.slope, ctx.scale = slope, scale
+        return gx, gb
+
+    @staticmethod
+    def backward(ctx, ggx, ggb):
+        # gx and gb are linear in g, through the same mask: d<gx, ggx> +
+        # d<gb, ggb> = mask(ggx + ggb[c]).  y only selects the branch, so its
+        # gradient is zero.
+        (y,) = ctx.saved_tensors
+        grad_g = fused_bias_act_bwd(ggx.contiguous(), y, ggb.contiguous(), ctx.slope, ctx.scale)
+        return grad_g, None, None, None
+
+
+class FusedBiasAct(torch.autograd.Function):
+    """K1 forward; saves its output, as `_fba_fwd_rule` does."""
+
+    @staticmethod
+    def forward(ctx, x, bias, slope: float, scale: float):
+        y = _fused_bias_act_fwd(x, bias, slope, scale)
+        ctx.save_for_backward(y)
+        ctx.slope, ctx.scale = slope, scale
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        # y only selects the slope: detached, so that a double backward does
+        # not run this backward again on a zero gradient
+        (y,) = ctx.saved_tensors
+        gx, gb = FusedBiasActBackward.apply(g, y.detach(), ctx.slope, ctx.scale)
+        return (gx if ctx.needs_input_grad[0] else None), (gb if ctx.needs_input_grad[1] else None), None, None
+
+
+def fused_bias_act(x: torch.Tensor, bias: torch.Tensor, slope: float = 0.2, scale: float = SQRT2):
+    """y = leaky_relu(x + bias, slope) * scale; bias (C,) on the last dim of a
+    2-D x and on dim 1 of an N-D x (N >= 3).  Differentiable twice."""
+    return FusedBiasAct.apply(x, bias, slope, scale)
+
+
 fused_bias_act.launches = 0
 
 
-def modconv_epilogue(
-    out: torch.Tensor,
-    demod: torch.Tensor,
-    noise: torch.Tensor,
-    noise_weight: torch.Tensor,
-    bias: torch.Tensor,
-    slope: float = 0.2,
-    scale: float = SQRT2,
-):
-    """y = leaky_relu(out*demod[b,c] + nw*noise[b|0,0,h,w] + bias[c]) * scale.
-
-    out (B,C,H,W), demod (B,C), noise (B,1,H,W) or (1,1,H,W), noise_weight a
-    one-element tensor (read on the device: no host sync), bias (C,)."""
+def _modconv_epilogue_fwd(out, demod, noise, noise_weight, bias, slope: float, scale: float):
+    """K3, or its plain version on the CPU; no autograd."""
     if out.device.type == "cpu":
         return modconv_epilogue_ref(out, demod, noise, noise_weight, bias, slope, scale)
     _require(out.device.type == "cuda", f"modconv_epilogue: unsupported device {out.device}")
@@ -131,6 +229,51 @@ def modconv_epilogue(
     _build.check(code, "modconv_epilogue")
     modconv_epilogue.launches += 1
     return y
+
+
+class ModconvEpilogue(torch.autograd.Function):
+    """K3 forward; the backward is `_epi_bwd_rule`: the activation's
+    derivative by K2 (no bias), the rest torch products and sums, all
+    differentiable, so the epilogue is differentiable twice."""
+
+    @staticmethod
+    def forward(ctx, out, demod, noise, noise_weight, bias, slope: float, scale: float):
+        y = _modconv_epilogue_fwd(out, demod, noise, noise_weight, bias, slope, scale)
+        ctx.save_for_backward(y, out, demod, noise, noise_weight)
+        ctx.slope, ctx.scale = slope, scale
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, out, demod, noise, noise_weight = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        g_pre, d_bias = FusedBiasActBackward.apply(g, y.detach(), ctx.slope, ctx.scale)
+        d_out = g_pre * demod[:, :, None, None] if need[0] else None
+        d_demod = (g_pre * out).sum(dim=(2, 3)) if need[1] else None
+        d_noise = None
+        if need[2]:
+            d_noise = noise_weight.reshape(()) * g_pre.sum(dim=1, keepdim=True)
+            if noise.shape[0] != d_noise.shape[0]:  # one noise map for the batch
+                d_noise = d_noise.sum(dim=0, keepdim=True)
+        d_nw = (g_pre * noise).sum().reshape(noise_weight.shape) if need[3] else None
+        return d_out, d_demod, d_noise, d_nw, (d_bias if need[4] else None), None, None
+
+
+def modconv_epilogue(
+    out: torch.Tensor,
+    demod: torch.Tensor,
+    noise: torch.Tensor,
+    noise_weight: torch.Tensor,
+    bias: torch.Tensor,
+    slope: float = 0.2,
+    scale: float = SQRT2,
+):
+    """y = leaky_relu(out*demod[b,c] + nw*noise[b|0,0,h,w] + bias[c]) * scale.
+
+    out (B,C,H,W), demod (B,C), noise (B,1,H,W) or (1,1,H,W), noise_weight a
+    one-element tensor (read on the device: no host sync), bias (C,).
+    Differentiable twice."""
+    return ModconvEpilogue.apply(out, demod, noise, noise_weight, bias, slope, scale)
 
 
 modconv_epilogue.launches = 0

@@ -11,7 +11,10 @@ Port of `rick_tpu/ops/resample.py`.  The chain per channel:
 
     out_h = (in_h * up_y + pad_y0 + pad_y1 - kernel_h) // down_y + 1
 
-Everything is differentiable by autograd to any order.  `blur`,
+Everything is differentiable by autograd to any order; the convolution is
+`ops.conv.conv2d`, whose double backward computes no gradient for the FIR
+kernel (PyTorch's own computes one, as a convolution with a filter as large
+as the image).  `blur`,
 `upsample2d` and `downsample2d` take one lowering: a single 2-D depthwise
 pass, which reads and writes the activation once (the JAX package chose
 between that and a separable two-pass form by size, on the TPU).
@@ -23,6 +26,8 @@ from typing import Sequence, Union
 
 import torch
 import torch.nn.functional as F
+
+from rick_tpu_torch.ops.conv import conv2d
 
 KernelSpec = Union[Sequence[float], torch.Tensor]
 
@@ -72,7 +77,7 @@ def upfirdn2d_general(
         max(-pad_x0, 0) : out.shape[3] - max(-pad_x1, 0),
     ]
     w = torch.flip(kernel, (0, 1)).to(out.dtype)[None, None]
-    out = F.conv2d(out, w, stride=(down_y, down_x))
+    out = conv2d(out, w, stride=(down_y, down_x))
     return out.reshape(n, c, out_h, out_w)
 
 

@@ -1,13 +1,238 @@
-"""Forward-only slice of `rick_tpu/train/steps.py`: the sample grids."""
+"""The training iteration and the sample grids.  Port of `rick_tpu/train/steps.py`.
+
+Phases: the D step, lazy R1, the G step, lazy path length, with the EMA
+folded into the last phase of each iteration (the G phase, or the path phase
+when it runs).  `rick_tpu` jits each phase and derives its random draws from
+a key inside the jit; here each phase updates the `TrainState` in place and
+takes its draws as tensors (`Draws`), which `sample_draws` makes from a
+`torch.Generator` on the main path, and which a test can take from JAX.
+
+The phases run G with `fast=False`, as JAX does: the upsample StyledConvs
+take the differentiable chain (their activation is `fused_bias_act`, K1 and
+its backward K2), the others `modconv_epilogue` (K3).  R1 and path length
+differentiate through those kernels twice; JAX's path phase falls back to
+its XLA epilogue there (`no_pallas_epilogue`), which is the same math.
+
+Warmup (`i < warmup_iter`): D steps only `final*`, G does not step (its loss
+is still computed), and the path phase does not run.  Adam's per-param step
+counts advance only for the params that step (`train/adam.py`).
+"""
 
 from __future__ import annotations
 
+import math
+from dataclasses import dataclass
+from typing import Dict, List, Mapping, Optional, Union
+
 import torch
+
+from rick_tpu_torch.nn import GeneratorConfig
+from rick_tpu_torch.train.adam import Params, adam_step
+from rick_tpu_torch.train.losses import d_logistic_loss, g_nonsaturating_loss, path_stats
+from rick_tpu_torch.train.masks import d_final, d_trainable, g_trainable, mask_grads, prune_params
+from rick_tpu_torch.train.state import TrainConfig, TrainState, trainable_params
+
+
+@dataclass
+class Draws:
+    """The random numbers of one phase."""
+
+    z1: torch.Tensor  # (B, latent)
+    z2: torch.Tensor  # (B, latent)
+    inject_index: Union[torch.Tensor, int]  # layers >= it take z2's style; n_latent: no mixing
+    noise: List[torch.Tensor]  # per layer, (B, 1, R, R)
+    noise_img: Optional[torch.Tensor] = None  # path phase: (B, 3, H, W) / sqrt(H * W)
+
+    def to(self, device) -> "Draws":
+        move = lambda x: x.to(device) if isinstance(x, torch.Tensor) else x  # noqa: E731
+        return Draws(move(self.z1), move(self.z2), move(self.inject_index), [move(x) for x in self.noise],
+                     move(self.noise_img))
+
+
+def sample_draws(
+    gen: torch.Generator, gcfg: GeneratorConfig, tcfg: TrainConfig, batch: int, *, path: bool = False
+) -> Draws:
+    """The draws of `rick_tpu`'s `_sample_latent` (style mixing with
+    probability `tcfg.mixing`, inject index uniform in 1..n_latent-1),
+    `_layer_noise`, and for the path phase the image-space noise, made on
+    `gen`'s device.  The inject index stays a device tensor: no host sync."""
+    dev = gen.device
+    z1 = torch.randn((batch, tcfg.latent), generator=gen, device=dev)
+    z2 = torch.randn((batch, tcfg.latent), generator=gen, device=dev)
+    mix = torch.rand((), generator=gen, device=dev) < tcfg.mixing
+    inject = torch.randint(1, gcfg.n_latent, (), generator=gen, device=dev)
+    inject = torch.where(mix, inject, torch.full_like(inject, gcfg.n_latent))
+    noise = [
+        torch.randn((batch, 1, 2 ** ((j + 5) // 2), 2 ** ((j + 5) // 2)), generator=gen, device=dev)
+        for j in range(gcfg.num_layers)
+    ]
+    noise_img = None
+    if path:
+        noise_img = torch.randn((batch, 3, gcfg.size, gcfg.size), generator=gen, device=dev)
+        noise_img = noise_img / math.sqrt(gcfg.size * gcfg.size)
+    return Draws(z1, z2, inject, noise, noise_img)
+
+
+def ada_update(ada_p, ada_stats, r_t, real_pred, tcfg: TrainConfig):
+    """ADA probability adaptation: pool sign(real_pred); once more than 255
+    predictions are pooled, step p by sign(r_t - target) * ada_step * n and
+    reset the pool.  Returns (ada_p, ada_stats, r_t)."""
+    count = torch.full((), real_pred.shape[0], dtype=ada_stats.dtype, device=ada_stats.device)
+    stats = ada_stats + torch.stack([torch.sign(real_pred).sum(), count])
+    trigger = stats[1] > 255
+    r_t_new = stats[0] / torch.clamp(stats[1], min=1.0)
+    sign = torch.where(r_t_new > tcfg.ada_target, 1.0, -1.0)
+    p_new = torch.clamp(ada_p + sign * tcfg.ada_step * stats[1], 0.0, 1.0)
+    return (
+        torch.where(trigger, p_new, ada_p),
+        torch.where(trigger, torch.zeros_like(stats), stats),
+        torch.where(trigger, r_t_new, r_t),
+    )
+
+
+def _grads(loss: torch.Tensor, params: Params) -> Dict[str, torch.Tensor]:
+    """d loss / d param for each param; zeros where the loss does not use it."""
+    got = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    return {n: torch.zeros_like(p) if gr is None else gr for (n, p), gr in zip(params.items(), got)}
+
+
+def _d_step(state: TrainState, loss: torch.Tensor, warmup: bool) -> None:
+    active = trainable_params(state.d, d_final if warmup else d_trainable)
+    grads = mask_grads(_grads(loss, active), state.d_freeze, state.d_prune)
+    adam_step(state.d_opt, trainable_params(state.d, d_trainable), grads)
+    prune_params(state.d, state.d_prune)
+
+
+def _g_step(state: TrainState, loss: torch.Tensor, warmup: bool) -> None:
+    if not warmup:
+        active = trainable_params(state.g, g_trainable)
+        adam_step(state.g_opt, active, mask_grads(_grads(loss, active), state.g_freeze, state.g_prune))
+    prune_params(state.g, state.g_prune)
+
+
+@torch.no_grad()
+def ema(ema_module: torch.nn.Module, module: torch.nn.Module, accum: float) -> None:
+    """e = accum * e + (1 - accum) * p over every param and buffer."""
+    e = list(ema_module.state_dict().values())
+    torch._foreach_mul_(e, accum)
+    torch._foreach_add_(e, list(module.state_dict().values()), alpha=1.0 - accum)
+
+
+def _latent(g, draws: Draws) -> torch.Tensor:
+    return g.make_latent([draws.z1, draws.z2], inject_index=draws.inject_index)
+
+
+def _fake(g, latent: torch.Tensor, draws: Draws) -> torch.Tensor:
+    return g([latent], input_is_latent=True, noise=draws.noise)[0]
+
+
+def d_phase(state: TrainState, tcfg: TrainConfig, real_img: torch.Tensor, draws: Draws, warmup: bool):
+    """D step on real_img and a fake batch.  Returns (metrics, the reals the
+    R1 phase takes)."""
+    with torch.no_grad():
+        fake = _fake(state.g, _latent(state.g, draws), draws)
+    fake_pred, _ = state.d(fake)
+    real_pred, _ = state.d(real_img)
+    loss = d_logistic_loss(real_pred, fake_pred)
+    _d_step(state, loss, warmup)
+    metrics = {
+        "d": loss.detach(),
+        "real_score": real_pred.detach().mean(),
+        "fake_score": fake_pred.detach().mean(),
+        "ada_p": state.ada_p,
+        "r_t": state.r_t,
+    }
+    return metrics, real_img
+
+
+def r1_phase(state: TrainState, tcfg: TrainConfig, real_img: torch.Tensor, warmup: bool) -> torch.Tensor:
+    """Lazy R1: r1 = mean over the batch of |d sum(D(x)) / dx|^2; D steps on
+    r1 / 2 * r1 * d_reg_every.  Returns the r1 value."""
+    real = real_img.detach().requires_grad_(True)
+    pred, _ = state.d(real)
+    (grad_real,) = torch.autograd.grad(pred.sum(), real, create_graph=True)
+    r1 = grad_real.pow(2).reshape(grad_real.shape[0], -1).sum(dim=1).mean()
+    _d_step(state, tcfg.r1 / 2.0 * r1 * tcfg.d_reg_every, warmup)
+    return r1.detach()
+
+
+def g_phase(state: TrainState, tcfg: TrainConfig, draws: Draws, warmup: bool, do_ema: bool) -> torch.Tensor:
+    """G step on the non-saturating loss; with `do_ema`, the iteration's EMA
+    of G and D.  Returns the loss."""
+    with torch.set_grad_enabled(not warmup):
+        pred, _ = state.d(_fake(state.g, _latent(state.g, draws), draws))
+        loss = g_nonsaturating_loss(pred)
+    _g_step(state, loss, warmup)
+    if do_ema:
+        ema(state.g_ema, state.g, tcfg.ema_accum)
+        ema(state.d_ema, state.d, tcfg.ema_accum)
+    return loss.detach()
+
+
+def path_phase(state: TrainState, tcfg: TrainConfig, draws: Draws, warmup: bool):
+    """Lazy path-length step, then the iteration's EMA.  One forward: the
+    gradient of sum(fake * noise_img) with respect to the latent keeps its
+    graph, and G steps on path_regularize * g_reg_every * penalty.  Returns
+    (penalty, mean path length of the batch)."""
+    with torch.no_grad():
+        latent = _latent(state.g, draws)
+    latent.requires_grad_(True)
+    fake = _fake(state.g, latent, draws)
+    (grad_lat,) = torch.autograd.grad((fake * draws.noise_img).sum(), latent, create_graph=True)
+    penalty, new_mean, lengths = path_stats(grad_lat, state.mean_path_length)
+    _g_step(state, tcfg.path_regularize * tcfg.g_reg_every * penalty, warmup)
+    ema(state.g_ema, state.g, tcfg.ema_accum)
+    ema(state.d_ema, state.d, tcfg.ema_accum)
+    state.mean_path_length = new_mean
+    return penalty.detach(), lengths.detach().mean()
+
+
+def run_iteration(
+    state: TrainState,
+    tcfg: TrainConfig,
+    real_img: torch.Tensor,
+    i: int,
+    *,
+    gen: Optional[torch.Generator] = None,
+    draws: Optional[Mapping[str, Draws]] = None,
+) -> Dict[str, torch.Tensor]:
+    """One iteration i: the phases that fire, each with its draws from
+    `draws` ("d", "g", "path") or, where a phase has none there, from
+    `sample_draws(gen, ...)` in phase order.  Returns the metrics as device
+    tensors (no host sync)."""
+    draws = dict(draws or {})
+    gcfg = state.g.cfg
+
+    def phase_draws(phase: str, batch: int) -> Draws:
+        if phase not in draws:
+            draws[phase] = sample_draws(gen, gcfg, tcfg, batch, path=phase == "path")
+        return draws[phase]
+
+    warmup = i < tcfg.warmup_iter
+    zero = torch.zeros((), device=real_img.device)
+    metrics, real_aug = d_phase(state, tcfg, real_img, phase_draws("d", real_img.shape[0]), warmup)
+
+    metrics["r1"] = zero
+    if i % tcfg.d_reg_every == 0:
+        metrics["r1"] = r1_phase(state, tcfg, real_aug, warmup)
+
+    # as in rick_tpu: no path phase during warmup, so neither G nor the mean
+    # path length moves there
+    path_fires = i % tcfg.g_reg_every == 0 and i >= tcfg.warmup_iter
+    metrics["g"] = g_phase(state, tcfg, phase_draws("g", tcfg.batch), warmup, do_ema=not path_fires)
+
+    metrics["path"] = metrics["path_length"] = zero
+    if path_fires:
+        path_batch = max(1, tcfg.batch // tcfg.path_batch_shrink)
+        metrics["path"], metrics["path_length"] = path_phase(state, tcfg, phase_draws("path", path_batch), warmup)
+    metrics["mean_path_length"] = state.mean_path_length
+    return metrics
 
 
 @torch.inference_mode()
 def sample_images(g_ema, sample_z: torch.Tensor, *, chunk: int = 25) -> torch.Tensor:
     """Deterministic sample grid from fixed latents, in chunks of `chunk`.
-    Uses the registered constant noise buffers, so grids are reproducible."""
-    outs = [g_ema([sample_z[i : i + chunk]])[0] for i in range(0, sample_z.shape[0], chunk)]
+    Uses the registered constant noise buffers, so grids are reproducible,
+    and the fused upsample kernel (`fast=True`)."""
+    outs = [g_ema([sample_z[i : i + chunk]], fast=True)[0] for i in range(0, sample_z.shape[0], chunk)]
     return torch.cat(outs, dim=0)

@@ -78,19 +78,72 @@ def test_convt_blur_act_kernel_matches_plain(cuda, N, Cin, Cout, H, noise_batch)
     assert _rel(ops.convt_blur_act(*a, use_act=False), ops.convt_blur_act_ref(*a, use_act=False)) <= 1e-4
 
 
+@pytest.mark.parametrize("shape", [(2, 8, 16, 16), (4, 32), (3, 5, 7, 9), (2, 3, 1, 1)])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_fused_bias_act_bwd_kernel_matches_plain(cuda, shape, with_bias):
+    g, y = _rand(shape, 0, device=cuda), _rand(shape, 1, device=cuda)
+    b = _rand((shape[-1] if len(shape) == 2 else shape[1],), 2, device=cuda) if with_bias else None
+    before = ops.fused_bias_act_bwd.launches
+    got = ops.fused_bias_act_bwd(g, y, b)
+    assert ops.fused_bias_act_bwd.launches == before + 1
+    assert _rel(got, ops.fused_bias_act_bwd_ref(g, y, b)) <= 1e-6  # elementwise, same order
+
+
+def _grads_and_double_grads(f, args, seed):
+    """First grads of <f(args), w> and the grads of <first grads, u> with
+    respect to w and args."""
+    y = f(*args)
+    w = _rand(tuple(y.shape), seed, device=y.device).requires_grad_(True)
+    first = torch.autograd.grad(y, args, w, create_graph=True)
+    us = [_rand(tuple(g.shape), seed + 1 + i, device=y.device) for i, g in enumerate(first)]
+    second = torch.autograd.grad(sum((g * u).sum() for g, u in zip(first, us)), (w,) + tuple(args), allow_unused=True)
+    return [g.detach() for g in first] + [torch.zeros(()) if g is None else g.detach() for g in second]
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 16, 16), (4, 32)])
+def test_fused_bias_act_grads_and_double_grads_match_plain_autograd(cuda, shape):
+    x = _rand(shape, 0, device=cuda).requires_grad_(True)
+    b = _rand((shape[-1] if len(shape) == 2 else shape[1],), 1, device=cuda).requires_grad_(True)
+    before = ops.fused_bias_act_bwd.launches
+    got = _grads_and_double_grads(ops.fused_bias_act, (x, b), 5)
+    assert ops.fused_bias_act_bwd.launches == before + 2  # the backward and the double backward
+    want = _grads_and_double_grads(ops.fused_bias_act_ref, (x, b), 5)
+    for a, r in zip(got, want):
+        assert _rel(a, r) <= 1e-6 if r.abs().max() > 0 else not a.any()
+
+
+@pytest.mark.parametrize("noise_batch", [2, 1])
+def test_modconv_epilogue_grads_and_double_grads_match_plain_autograd(cuda, noise_batch):
+    args = [_rand((2, 8, 16, 16), 0, device=cuda), _rand((2, 8), 1, device=cuda).abs() + 0.1,
+            _rand((noise_batch, 1, 16, 16), 2, device=cuda), torch.tensor([0.7], device=cuda),
+            _rand((8,), 3, device=cuda)]
+    args = [a.requires_grad_(True) for a in args]
+    got = _grads_and_double_grads(ops.modconv_epilogue, args, 7)
+    want = _grads_and_double_grads(ops.modconv_epilogue_ref, args, 7)
+    # sums over space and batch in the same order on both sides: 1e-5
+    for a, r in zip(got, want):
+        assert _rel(a, r) <= 1e-5 if r.abs().max() > 0 else not a.any()
+
+
 def test_kernels_raise_under_autograd_and_on_bad_input(cuda):
+    """Only K4, which is forward only as in JAX, raises under autograd."""
     x = torch.randn((2, 4, 3, 3), device=cuda, requires_grad=True)
     b = torch.zeros(4, device=cuda)
+    ops.fused_bias_act(x, b).sum().backward()  # differentiable
+    convt = [torch.randn((1, 4, 3, 3), device=cuda, requires_grad=True), torch.randn((4, 4, 3, 3), device=cuda),
+             torch.ones((1, 4), device=cuda), torch.zeros((1, 1, 6, 6), device=cuda), b]
     with pytest.raises(NotImplementedError):
-        ops.fused_bias_act(x, b)
+        ops.convt_blur_act(*convt)
     with torch.no_grad():
-        ops.fused_bias_act(x, b)
+        ops.convt_blur_act(*convt)
     with pytest.raises(ValueError, match="contiguous"):
         ops.fused_bias_act(torch.randn((4, 2, 3, 3), device=cuda).transpose(0, 1), b)
     with pytest.raises(ValueError, match="dtype"):
         ops.fused_bias_act(x.detach().double(), b)
     with pytest.raises(ValueError, match="bias"):
         ops.fused_bias_act(x.detach(), torch.zeros(5, device=cuda))
+    with pytest.raises(ValueError, match="bias"):
+        ops.fused_bias_act_bwd(x.detach(), x.detach(), torch.zeros(5, device=cuda))
 
 
 def test_small_generator_and_discriminator_match_the_cpu_path(cuda):
@@ -108,8 +161,61 @@ def test_small_generator_and_discriminator_match_the_cpu_path(cuda):
         want_s = d(want)[0]
         ops.reset_launch_counts()
         g_c, d_c = g.to(cuda), d.to(cuda)
-        got, got_f = g_c([z1.to(cuda), z2.to(cuda)], inject_index=3, return_feats=True)
+        got, got_f = g_c([z1.to(cuda), z2.to(cuda)], inject_index=3, return_feats=True, fast=True)
         got_s = d_c(want.to(cuda))[0]
-    assert all(v > 0 for v in ops.launch_counts().values())
+    counts = ops.launch_counts()
+    assert counts.pop("fused_bias_act_bwd") == 0 and all(v > 0 for v in counts.values()), counts
     for a, b in [(got, want), (got_s, want_s)] + list(zip(got_f, want_f)):
         assert _rel(a, b) <= 1e-4
+
+
+def test_small_training_iteration_matches_the_cpu_path(cuda):
+    """One 16px iteration with every phase (R1 and path length included) on
+    the card and on the CPU, from the same state and draws.  The state is two
+    CPU iterations in, with Adam's second moments lifted to 1e-2 of each
+    tensor's largest, so that no gradient's rounding noise becomes a whole
+    step.  Losses within 1e-3 (the path penalty squares a gradient taken
+    through all of G).  The step each param took, per tensor in norm, as
+    chip_smoke.py compares it: |step_card - step_cpu| <= 1% of |step_cpu|
+    (5% for a one-element noise weight, whose gradient is one sum over a
+    layer that cancels to a small part of its terms) + an RMS of 0.1% of lr
+    per entry.  The two sum every conv in another order, and two card runs
+    of the same iteration differ from each other as much: through the path
+    penalty's double backward, single entries of a step move by up to ~0.6%
+    of its largest entry."""
+    import copy
+
+    from rick_tpu_torch.nn import DiscriminatorConfig, GeneratorConfig
+    from rick_tpu_torch.train import TrainConfig, init_train_state, run_iteration, sample_draws
+
+    gcfg, dcfg = GeneratorConfig(size=16), DiscriminatorConfig(size=16)
+    tcfg = TrainConfig(batch=2, augment=False, warmup_iter=0)
+    cpu = init_train_state(gcfg, dcfg, tcfg, rng=torch.Generator().manual_seed(0), device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    for i in (1, 2):
+        run_iteration(cpu, tcfg, torch.randn((2, 3, 16, 16), generator=gen), i, gen=gen)
+    for opt in (cpu.g_opt, cpu.d_opt):
+        for st in opt.state.values():
+            st["exp_avg_sq"] += 1e-2 * st["exp_avg_sq"].max()
+    draws = {"d": sample_draws(gen, gcfg, tcfg, 2), "g": sample_draws(gen, gcfg, tcfg, 2),
+             "path": sample_draws(gen, gcfg, tcfg, 1, path=True)}
+    real = torch.randn((2, 3, 16, 16), generator=gen)
+    cpu_before = copy.deepcopy(cpu)
+    card = copy.deepcopy(cpu).to(cuda)
+    ops.reset_launch_counts()
+    got = run_iteration(card, tcfg, real.to(cuda), 0, draws={k: v.to(cuda) for k, v in draws.items()})
+    assert all(v > 0 for k, v in ops.launch_counts().items() if k != "convt_blur_act")
+    want = run_iteration(cpu, tcfg, real, 0, draws=draws)
+    for k in want:
+        assert abs(float(got[k]) - float(want[k])) <= 1e-3 * max(1.0, abs(float(want[k]))), k
+    for name in ("g", "d", "g_ema", "d_ema"):
+        lr = tcfg.d_lr if name[0] == "d" else tcfg.g_lr
+        lr = lr * (1.0 - tcfg.ema_accum) if name.endswith("_ema") else lr
+        a, b = getattr(card, name).state_dict(), getattr(cpu, name).state_dict()
+        start = getattr(cpu_before, name).state_dict()
+        for k in b:
+            step_card = a[k].cpu().double() - start[k].double()
+            step_cpu = b[k].double() - start[k].double()
+            err = float((step_card - step_cpu).norm())
+            rtol = 5e-2 if step_cpu.numel() == 1 else 1e-2
+            assert err <= rtol * float(step_cpu.norm()) + 1e-3 * lr * step_cpu.numel() ** 0.5, (name, k, err)

@@ -135,7 +135,11 @@ def test_wrappers_take_plain_version_on_cpu_and_count_nothing():
     assert torch.equal(ops.modconv_epilogue(x, demod, noise, nw, b), ops.modconv_epilogue_ref(x, demod, noise, nw, b))
     args = tuple(map(t, _convt_args(1, 4, 4, 3)))
     assert torch.equal(ops.convt_blur_act(*args), ops.convt_blur_act_ref(*args))
-    assert ops.launch_counts() == {"fused_bias_act": 0, "modconv_epilogue": 0, "convt_blur_act": 0}
+    g = t(rand((2, 4, 3, 3), 4))
+    assert torch.equal(ops.fused_bias_act_bwd(g, x, b), ops.fused_bias_act_bwd_ref(g, x, b))
+    assert ops.launch_counts() == {
+        "fused_bias_act": 0, "fused_bias_act_bwd": 0, "modconv_epilogue": 0, "convt_blur_act": 0,
+    }
 
 
 def test_wrappers_raise_on_other_devices():
@@ -143,6 +147,8 @@ def test_wrappers_raise_on_other_devices():
     b = torch.empty((4,), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         ops.fused_bias_act(x, b)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.fused_bias_act_bwd(x, x, b)
     with pytest.raises(ValueError, match="unsupported device"):
         ops.modconv_epilogue(x, torch.empty((2, 4), device="meta"), torch.empty((1, 1, 3, 3), device="meta"),
                              torch.empty((1,), device="meta"), b)
@@ -156,10 +162,12 @@ def test_build_command_names_every_source_and_the_hopper_target():
     assert names == ["convt_blur_act.cu", "fused_bias_act.cu", "modconv_epilogue.cu"]
     flags = " ".join(_build.NVCC_FLAGS)
     assert "-gencode arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
-    lib = _build.library_path()
-    assert lib.parent == _build.BUILD_DIR and lib.parent.name == "rick_tpu_torch"
-    assert lib == _build.library_path()  # the name depends on the sources only
-    assert set(_build.SIGNATURES) == {"rick_fused_bias_act", "rick_modconv_epilogue", "rick_convt_blur_act"}
+    out = _build.build_path()
+    assert out.parent == _build.BUILD_DIR and out.parent.name == "rick_tpu_torch"
+    assert out == _build.build_path()  # the name depends on the sources only
+    assert set(_build.SIGNATURES) == {
+        "rick_fused_bias_act", "rick_fused_bias_act_bwd", "rick_modconv_epilogue", "rick_convt_blur_act",
+    }
 
 
 def test_every_entry_point_is_defined_in_csrc_with_its_signature():

@@ -118,3 +118,55 @@ def test_fused_leaky_relu_derivatives():
     close(gx, want, rtol=1e-6, atol_frac=0)
     hess = torch.autograd.functional.hessian(lambda v: tfa.fused_leaky_relu(v, b).sum(), x)
     assert not torch.any(hess)
+
+
+# ---------------------------------------------------------------------------
+# convolutions with cheap double backward (ops/conv.py)
+# ---------------------------------------------------------------------------
+
+# (x shape, w shape, stride), as upfirdn2d calls it: no bias, no padding, one
+# group.  The data gradient of each is a transposed convolution, which the
+# double backward differentiates again; a stride that does not divide the
+# input leaves an output padding to restore.
+CONV_CASES = {
+    "3x3": ((2, 4, 7, 6), (5, 4, 3, 3), (1, 1)),
+    "3x3_stride2": ((2, 4, 8, 8), (5, 4, 3, 3), (2, 2)),
+    "1x1_stride_2x1": ((2, 4, 5, 5), (3, 4, 1, 1), (2, 1)),
+    "blur": ((6, 1, 9, 9), (1, 1, 4, 4), (1, 1)),
+    "blur_down2": ((6, 1, 9, 9), (1, 1, 4, 4), (2, 2)),
+}
+
+
+def _conv_inputs(case, dtype):
+    xs, ws, stride = CONV_CASES[case]
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(xs, generator=gen, dtype=dtype, requires_grad=True)
+    w = torch.randn(ws, generator=gen, dtype=dtype, requires_grad=True)
+    from rick_tpu_torch.ops import conv
+
+    return (lambda x, w: conv.conv2d(x, w, stride),
+            lambda x, w: torch.nn.functional.conv2d(x, w, stride=stride), x, w)
+
+
+@pytest.mark.parametrize("case", CONV_CASES)
+def test_conv_gradgradcheck_float64(case):
+    f, _, x, w = _conv_inputs(case, torch.float64)
+    assert torch.autograd.gradcheck(f, (x, w))
+    assert torch.autograd.gradgradcheck(f, (x, w))
+
+
+@pytest.mark.parametrize("case", CONV_CASES)
+def test_conv_first_and_second_derivatives_match_torch(case):
+    """Values, grads and the grads of <grads, u> equal those of torch's own
+    convolution autograd: the same math, other kernels (1e-5 of max|ref|)."""
+    f, f_ref, x, w = _conv_inputs(case, torch.float32)
+    results = []
+    for fn in (f, f_ref):
+        y = fn(x, w)
+        g = torch.randn(y.shape, generator=torch.Generator().manual_seed(1))
+        gx, gw = torch.autograd.grad(y, (x, w), g, create_graph=True)
+        u = torch.randn(gx.shape, generator=torch.Generator().manual_seed(2))
+        v = torch.randn(gw.shape, generator=torch.Generator().manual_seed(3))
+        results.append([y, gx, gw, *torch.autograd.grad((gx * u).sum() + (gw * v).sum(), (x, w))])
+    for got, want in zip(*results):
+        close(got, want, rtol=1e-5, atol_frac=1e-5)
