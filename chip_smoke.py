@@ -32,6 +32,23 @@ Phases, each raising on failure:
      phase and a Fisher accumulation on the card and on the CPU, compared
   9. ms per phase at 256px batch 2, the recipe's mix per iteration, the
      seconds of a Fisher round, peak device memory
+ 10. K5, the stage ablation of K4: each stage (load, conv, blur, full) against
+     its plain version, and the full stage bitwise against K4, at the
+     ablation's three shapes at batch 4, on the ablation's own batch-100
+     inputs, and at the three smaller upsample shapes at batch 100 (TF32
+     off); then the ablation tool's run at batch 100 (its own entry point),
+     whose launches are counted, and its table
+ 11. the eval slice: seeded 256px g_ema, the seeded Inception with randomized
+     batch-norm statistics, 5000 seeded uint8 "real" images; the recipe's
+     Evaluator (5000 samples, gen_batch 100, real batch 25) and one
+     compute_inception_score; FID finite, K4/K3/K1 launched 6/7/8 times per
+     chunk; the device Fréchet distance against scipy on the same statistics
+ 12. the eval slice vs the plain path: 8 fixed latents with constant noise
+     through g_ema on the card (K4) and the CPU (plain chain), then the full
+     299px Inception on each; mu/cov of a 16-image run on each
+ 13. fid5k_eval_s with TF32 off and on (torch's default for convolutions),
+     split into generation and Inception; real-set extraction s; Inception
+     img/s at batch 100; peak device memory
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -48,14 +65,25 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from rick_tpu_torch.ckpt import load_checkpoint
+from rick_tpu_torch.metrics import (
+    Evaluator,
+    calculate_frechet_distance,
+    get_activations,
+    inception_init_np,
+    randomize_bn,
+)
+from rick_tpu_torch.metrics.evaluator import _stats_from_acts
 from rick_tpu_torch.nn import Discriminator, DiscriminatorConfig, Generator, GeneratorConfig
 from rick_tpu_torch.ops import (
+    STAGES,
     _build,
     convt_blur_act,
     convt_blur_act_ref,
+    convt_blur_act_stage,
     fused_bias_act,
     fused_bias_act_bwd,
     fused_bias_act_bwd_ref,
@@ -65,6 +93,7 @@ from rick_tpu_torch.ops import (
     modconv_epilogue_ref,
     reset_launch_counts,
 )
+from rick_tpu_torch.tools import bench_fused_ablate
 from rick_tpu_torch.train import (
     TrainConfig,
     accumulate_fims,
@@ -108,16 +137,33 @@ GRAD_TOL = 1e-5
 # steps that are themselves near zero (R1's gradient of a bias, which moves
 # D's input gradient only through the minibatch-stddev layer).  The losses:
 # 1e-3, for the path penalty, which squares a gradient taken through all of G.
-# Adam's v and the FIMs: 1e-2 (5e-3 on the gradient).  The noise weights, the
-# one-element params, whose gradient is one sum over a whole layer that
-# cancels to a small part of its terms: 5e-2 for their step, v and FIM.
+# Adam's v and the FIMs: 1e-2 (5e-3 on the gradient).  The one-element params
+# (G's noise weights, D's final bias) are compared together, as one vector per
+# model, at 5e-2 for their step, v and FIM: a noise weight's gradient is one
+# sum over a whole layer that cancels to a small part of its terms, so alone
+# it moves by percents with the rounding (tools/fim_spread.py: in a small
+# noise weight's FIM, two card runs differ by up to 6.8e-3, card and CPU by
+# up to 1.5e-2; one run's card and CPU differed by 6.7e-2), while the
+# vector, as each tensor, is set by its large entries.
 STEP_TOL, STEP_ATOL, V_TOL, FIM_TOL, LOSS_TOL, SCALAR_TOL = 1e-2, 1e-3, 1e-2, 1e-2, 1e-3, 5e-2
+# the eval slice, as the README recipe's Evaluator runs it (`--n_sample_test
+# 5000`, real batch max(batch, 25), gen_batch 100)
+EVAL_N, REAL_BATCH = 5000, 25
+# the f32 device Fréchet distance against scipy's f64 one on the same
+# statistics, relative: the f32 eigendecompositions of two 2048-d
+# covariances keep about five digits of traces of the distance's size (the
+# CPU tests see ~1e-6 at full rank)
+FD_TOL = 1e-3
+# (Cin, Cout, H of the input): the upsample StyledConvs of 256px generation
+# below the ablation's three shapes
+SMALL_UP_SHAPES = ((512, 512, 4), (512, 512, 8), (512, 512, 16))
 SOURCES = {
     "fused_bias_act": ("rick_tpu_torch/csrc/fused_bias_act.cu", "rick_tpu/ops/pallas_kernels.py:81"),
     "fused_bias_act_bwd": ("rick_tpu_torch/csrc/fused_bias_act.cu", "rick_tpu/ops/pallas_kernels.py:126"),
     "modconv_epilogue": ("rick_tpu_torch/csrc/modconv_epilogue.cu", "rick_tpu/ops/pallas_kernels.py:176"),
     "convt_blur_act": ("rick_tpu_torch/csrc/convt_blur_act.cu", "rick_tpu/ops/fused_upsample.py:257"),
 }
+K5_SOURCE = ("rick_tpu_torch/csrc/convt_blur_act.cu", "scripts/bench_fused_ablate.py:153")
 # NVIDIA H100 SXM data sheet (dense): HBM 3.35 TB/s; f32 outside the tensor cores 67 TFLOP/s
 PEAK_BYTES_PER_S, PEAK_F32_FLOP_PER_S = 3.35e12, 67e12
 
@@ -127,9 +173,23 @@ def require(cond: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
-def tol(t: torch.Tensor, tensor_tol: float) -> float:
-    """The tolerance of a tensor: SCALAR_TOL for a one-element param."""
-    return SCALAR_TOL if t.numel() == 1 else tensor_tol
+ONE_ELEMENT = "one-element params"
+
+
+def by_tensor(tensors: dict) -> dict:
+    """{name: f64 CPU copy}, the one-element tensors stacked into one vector
+    under ONE_ELEMENT (in the order given)."""
+    out = {k: v.detach().double().cpu() for k, v in tensors.items() if v.numel() > 1}
+    ones = [v.detach().double().cpu().reshape(1) for v in tensors.values() if v.numel() == 1]
+    if ones:
+        out[ONE_ELEMENT] = torch.cat(ones)
+    return out
+
+
+def tol(name: str, tensor_tol: float) -> float:
+    """The tolerance of an entry of `by_tensor`: SCALAR_TOL for the vector of
+    one-element params."""
+    return SCALAR_TOL if name == ONE_ELEMENT else tensor_tol
 
 
 def card_line() -> str:
@@ -244,8 +304,9 @@ def forward_cases(gen: torch.Generator):
         w = randn(cout, cin, 3, 3, scale=1.0 / (cin * 9) ** 0.5)
         demod, bias = uniform(B, cout), randn(cout, scale=0.1)
         y_numel = B * cout * 4 * H * H
-        # the transposed conv's MACs, the 4x4 blur's, and the epilogue
-        flops = 2 * B * cin * cout * 9 * H * H + 2 * 16 * y_numel + 4 * y_numel
+        # the transposed conv's MACs, the separable blur's (4 + 4 taps per
+        # output), and the epilogue
+        flops = 2 * B * cin * cout * 9 * H * H + 2 * 8 * y_numel + 4 * y_numel
         for nb in (B, 1):
             a = (xs, w, demod, randn(nb, 1, 2 * H, 2 * H, scale=0.1), bias)
             nbytes = 4 * (xs.numel() + w.numel() + demod.numel() + nb * 4 * H * H + cout + y_numel)
@@ -578,34 +639,36 @@ def train_vs_plain(state, tcfg) -> dict:
         want = run(on_cpu, draws, real)
         cpu_s[name] = time.perf_counter() - t0
         got = run(on_card, None if draws is None else draws.to(DEV), real.to(DEV))
-        worst = {"loss": 0.0, "step": 0.0, "v": 0.0}
+        worst = {"loss": (0.0, ""), "step": (0.0, ""), "v": (0.0, "")}
         for a, b in zip(got, want):
             e = abs(float(a) - float(b)) / max(abs(float(b)), 1e-6)
-            worst["loss"] = max(worst["loss"], e)
+            worst["loss"] = max(worst["loss"], (e, ""))
             require(e <= LOSS_TOL, f"{name} phase: loss {float(a)} vs {float(b)} ({e:.3e} > {LOSS_TOL})")
         trained = ("d", d_trainable) if name in ("d", "r1") else ("g", g_trainable)
         for model in ("g", "g_ema", "d_ema") if name in ("g", "path") else ("d",):
-            start = dict(getattr(base_cpu, model).named_parameters())
-            cur = dict(getattr(on_cpu, model).named_parameters())
+            start = by_tensor(dict(getattr(base_cpu, model).named_parameters()))
+            cur = by_tensor(dict(getattr(on_cpu, model).named_parameters()))
+            card = by_tensor(dict(getattr(on_card, model).named_parameters()))
             lr = tcfg.d_lr if model[0] == "d" else tcfg.g_lr
             lr = lr * (1.0 - tcfg.ema_accum) if model.endswith("_ema") else lr
-            for k, p in getattr(on_card, model).named_parameters():
-                step_cpu = (cur[k].detach() - start[k].detach()).double()
-                step_card = (p.detach().cpu() - start[k].detach()).double()
+            for k in start:
+                step_cpu, step_card = cur[k] - start[k], card[k] - start[k]
                 diff, ref = float((step_card - step_cpu).norm()), float(step_cpu.norm())
-                allowed = tol(step_cpu, STEP_TOL) * ref + STEP_ATOL * lr * math.sqrt(step_cpu.numel())
-                worst["step"] = max(worst["step"], diff / allowed)
+                allowed = tol(k, STEP_TOL) * ref + STEP_ATOL * lr * math.sqrt(step_cpu.numel())
+                worst["step"] = max(worst["step"], (diff / allowed, f"{model}.{k}"))
                 require(diff <= allowed, f"{name} phase: the step of {model}.{k} differs by {diff:.3e} "
                                          f"(|step| {ref:.3e}; allowed {allowed:.3e})")
         opt = trained[0] + "_opt"
-        v_cpu = exp_avg_sq(getattr(on_cpu, opt), trainable_params(getattr(on_cpu, trained[0]), trained[1]))
-        v_card = exp_avg_sq(getattr(on_card, opt), trainable_params(getattr(on_card, trained[0]), trained[1]))
+        v_cpu = by_tensor(exp_avg_sq(getattr(on_cpu, opt), trainable_params(getattr(on_cpu, trained[0]), trained[1])))
+        v_card = by_tensor(exp_avg_sq(getattr(on_card, opt),
+                                      trainable_params(getattr(on_card, trained[0]), trained[1])))
         for k in v_cpu:
             e = norm_err(v_card[k], v_cpu[k])
-            worst["v"] = max(worst["v"], e / tol(v_cpu[k], V_TOL))
-            require(e <= tol(v_cpu[k], V_TOL), f"{name} phase: exp_avg_sq of {k} differs by {e:.3e}")
-        print(f"  {name} phase: CPU {cpu_s[name]:.1f} s; loss relative error {worst['loss']:.2e}; "
-              f"worst error / allowed: step {worst['step']:.2e}, exp_avg_sq {worst['v']:.2e}", flush=True)
+            worst["v"] = max(worst["v"], (e / tol(k, V_TOL), k))
+            require(e <= tol(k, V_TOL), f"{name} phase: exp_avg_sq of {k} differs by {e:.3e}")
+        print(f"  {name} phase: CPU {cpu_s[name]:.1f} s; loss relative error {worst['loss'][0]:.2e}; "
+              f"worst error / allowed: step {worst['step'][0]:.2e} ({worst['step'][1]}), "
+              f"exp_avg_sq {worst['v'][0]:.2e} ({worst['v'][1]})", flush=True)
         del on_cpu, on_card
 
     noises = torch.randn((2, tcfg.latent), generator=cpu_gen)
@@ -615,13 +678,15 @@ def train_vs_plain(state, tcfg) -> dict:
     cpu_s["fims"] = time.perf_counter() - t0
     g_ema, d_ema = state.g_ema, state.d_ema
     got = accumulate_fims(g_ema, d_ema, noises.to(DEV), reals.to(DEV), batch=tcfg.batch, const_noise=True)
-    worst = 0.0
-    for a, b in zip(got, want):
+    worst = (0.0, "")
+    for model, a, b in zip(("g_ema", "d_ema"), got, want):
+        a, b = by_tensor(a), by_tensor(b)
         for k in b:
             e = norm_err(a[k], b[k])
-            worst = max(worst, e / tol(b[k], FIM_TOL))
-            require(e <= tol(b[k], FIM_TOL), f"FIM of {k} differs by {e:.3e}")
-    print(f"  Fisher accumulation (2 images): CPU {cpu_s['fims']:.1f} s; worst error / allowed {worst:.2e}", flush=True)
+            worst = max(worst, (e / tol(k, FIM_TOL), f"{model}.{k}"))
+            require(e <= tol(k, FIM_TOL), f"FIM of {model}.{k} differs by {e:.3e}")
+    print(f"  Fisher accumulation (2 images): CPU {cpu_s['fims']:.1f} s; worst error / allowed {worst[0]:.2e} "
+          f"({worst[1]})", flush=True)
     return cpu_s
 
 
@@ -654,6 +719,181 @@ def measure_training(state, tcfg, card: str) -> None:
     torch.cuda.synchronize()
     print(f"  Fisher round ({N_FISHER} images): {time.perf_counter() - t0:.3f} s [{card}]")
     print(f"  peak device memory of the run: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 10: K5, the stage ablation of K4
+# ---------------------------------------------------------------------------
+
+
+def check_k5() -> dict:
+    """Each stage against its plain version, and full bitwise against K4: at
+    the ablation's shapes at batch B, on the very inputs the ablation times
+    at batch 100, and at the smaller upsample shapes of 256px generation at
+    batch 100 (so K4 is checked at all six shapes the evaluation gives it);
+    then the ablation with its launches counted.  Returns one JSON entry per
+    stage."""
+    errs = dict.fromkeys(STAGES, 0.0)
+    checks = [(f"ablation shapes, batch {B}", B, bench_fused_ablate.SHAPES, 100),
+              (f"ablation shapes and inputs, batch {bench_fused_ablate.BATCH}", bench_fused_ablate.BATCH,
+               bench_fused_ablate.SHAPES, 0),
+              (f"the other upsample shapes, batch {GEN_BATCH}", GEN_BATCH, SMALL_UP_SHAPES, 10)]
+    for label, batch, shapes, seed in checks:
+        got = bench_fused_ablate.verify(batch, shapes, DEV, seed=seed)
+        torch.cuda.synchronize()
+        errs = {k: max(v, got[k]) for k, v in errs.items()}
+        print(f"  {label} {list(shapes)}: max abs err " + ", ".join(f"{k} {v:.3e}" for k, v in got.items())
+              + "; full == K4 bitwise", flush=True)
+    reset_launch_counts()
+    rows = bench_fused_ablate.ablate()
+    torch.cuda.synchronize()
+    counts = dict(convt_blur_act_stage.launches)
+    print(f"  launches in the ablation run: {counts}")
+    require(all(v > 0 for v in counts.values()), f"a K5 stage did not launch in the ablation: {counts}")
+    for r in rows:
+        print("  " + bench_fused_ablate.format_row(r))
+        print("    bound ms: " + "  ".join(f"{st}={bound(*r['work'][st])[0]:.3f}" for st in STAGES), flush=True)
+    top = max(rows, key=lambda r: r["ms"]["full"])
+    entries = []
+    for st in STAGES:
+        bound_ms, bound_by = bound(*top["work"][st])
+        entries.append(dict(
+            name=f"convt_blur_act_stage.{st}", route="cuda", source=K5_SOURCE[0], replaces=K5_SOURCE[1],
+            launches=counts[st], max_abs_err=errs[st], ms=top["ms"][st], plain_ms=top["plain_ms"][st],
+            bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=top["conv_transpose2d_ms"] if st == "conv" else None,
+            shape=f"({top['batch']}, {top['cin']}, {top['h']}, {top['h']})->{top['cout']}", run="ablation",
+            ms_by_shape={f"{r['cin']}->{r['cout']}@{r['h']}": r["ms"][st] for r in rows},
+        ))
+    return {"entries": entries, "rows": rows}
+
+
+# ---------------------------------------------------------------------------
+# phases 11-13: the eval slice
+# ---------------------------------------------------------------------------
+
+
+def build_eval():
+    """Seeded 256px g_ema, the Inception params, 5000 seeded uint8 "real"
+    images on the host (what the recipe's cache holds) and the Evaluator;
+    returns them with the seconds of the real set's extraction."""
+    gen = torch.Generator(device=DEV).manual_seed(20)
+    g_ema = Generator(SIZE, rng=gen, device=DEV)
+    randomize_zero_params(g_ema, gen)
+    g_ema.eval()
+    real = torch.randint(0, 256, (EVAL_N, 3, SIZE, SIZE), generator=gen, device=DEV, dtype=torch.uint8).cpu().numpy()
+    # randomized batch-norm statistics: the init's identity ones would leave
+    # batch norm untested
+    incp = randomize_bn(inception_init_np(0), seed=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev = Evaluator(g_ema.cfg, fid_real_samples=real, inception_nsamples=EVAL_N, batch_size=REAL_BATCH,
+                   n_sample_store=25, inception_params=incp, gen_batch=GEN_BATCH, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    return g_ema, ev, incp, real, time.perf_counter() - t0
+
+
+def eval_slice(g_ema, ev) -> dict:
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    score = ev.compute_inception_score(g_ema)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    print(f"  FID@{EVAL_N} (seeded Inception, not a quality measure): {score['fid']:.6f}; {wall:.2f} s "
+          f"(first call); launches {counts}", flush=True)
+    require(math.isfinite(score["fid"]), f"FID is not finite: {score}")
+    per_chunk = {"convt_blur_act": 6, "modconv_epilogue": 7, "fused_bias_act": 8}
+    for name, k in per_chunk.items():
+        require(counts[name] == k * ev.n_chunks, f"{name} launched {counts[name]} times, not {k} x {ev.n_chunks}")
+    mu, cov = ev.last_stats
+    t0 = time.perf_counter()
+    fd_dev = ev.fid(mu, cov)
+    dev_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fd_scipy = calculate_frechet_distance(*ev.real_stats64(), mu.double().cpu().numpy(), cov.double().cpu().numpy())
+    scipy_s = time.perf_counter() - t0
+    rel = abs(fd_dev - fd_scipy) / max(abs(fd_scipy), 1e-30)
+    print(f"  Fréchet distance: device f32 {fd_dev:.6f} ({dev_s:.3f} s), scipy f64 {fd_scipy:.6f} ({scipy_s:.1f} s "
+          f"on the host), relative difference {rel:.3e} (tolerance {FD_TOL})", flush=True)
+    require(rel <= FD_TOL, f"device Fréchet distance {fd_dev} vs scipy {fd_scipy}: {rel:.3e} > {FD_TOL}")
+    return counts
+
+
+def eval_vs_plain(g_ema, ev, incp) -> None:
+    """8 fixed latents (constant noise) through g_ema and the full Inception on
+    the card and on the CPU; then mu/cov of a 16-image run on each."""
+    g_cpu = copy.deepcopy(g_ema).cpu()
+    ev_cpu = Evaluator(g_ema.cfg, fid_real_samples=np.zeros((1, 3, SIZE, SIZE), np.uint8), inception_nsamples=16,
+                       gen_batch=8, inception_params=incp, real_acts=ev._real_acts[:REAL_BATCH], device="cpu")
+    z = torch.randn((16, g_ema.cfg.style_dim), generator=torch.Generator().manual_seed(21))
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        img_c = g_cpu([z[:8]])[0]
+        acts_c = ev_cpu.inception.pool3(img_c)
+        img_g = g_ema([z[:8].to(DEV)], fast=True)[0]
+        acts_g = ev.inception.pool3(img_g)
+    mu_c, cov_c = _stats_from_acts(ev_cpu.activations(g_cpu, z))
+    cpu_s = time.perf_counter() - t0
+    mu_g, cov_g = _stats_from_acts(ev.activations(g_ema, z.to(DEV)))
+    worst = 0.0
+    for name, got, ref in [("images", img_g, img_c), ("activations", acts_g, acts_c), ("mu", mu_g, mu_c),
+                           ("cov", cov_g, cov_c)]:
+        _, rel = rel_err(got.cpu(), ref)
+        worst = max(worst, rel)
+        print(f"  {name}: max|d|/max|ref| = {rel:.3e}")
+        require(rel <= SLICE_TOL, f"eval slice vs plain, {name}: {rel:.3e} > {SLICE_TOL}")
+    print(f"  CPU side {cpu_s:.1f} s; worst {worst:.3e} (tolerance {SLICE_TOL})", flush=True)
+
+
+def measure_eval(g_ema, ev, real, card: str) -> dict:
+    """fid5k_eval_s (one compute_inception_score, host clock) with TF32 off
+    and on for the convolutions; its split, measured as separate runs of
+    the same work: generation alone (n_chunks batches of 100, fresh noise),
+    Inception alone on one batch of 100 generated images (n_chunks times),
+    the statistics and the device Fréchet distance; the real set's
+    extraction; Inception img/s."""
+    out = {}
+    gen = torch.Generator(device=DEV).manual_seed(22)
+    for tf32 in (False, True):
+        torch.backends.cudnn.allow_tf32 = tf32
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        score = ev.compute_inception_score(g_ema)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            for _ in range(ev.n_chunks):
+                z = torch.randn((ev.gen_batch, ev.latent), generator=gen, device=DEV)
+                imgs, _ = g_ema([z], rng=gen, fast=True)
+            torch.cuda.synchronize()
+            gen_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for _ in range(ev.n_chunks):
+                acts = ev.inception.pool3(imgs)
+            torch.cuda.synchronize()
+            inc_s = time.perf_counter() - t0
+        mu, cov = ev.last_stats
+        t0 = time.perf_counter()
+        ev.fid(mu, cov)
+        fd_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        get_activations(real, REAL_BATCH, ev.inception)
+        torch.cuda.synchronize()
+        real_s = time.perf_counter() - t0
+        key = "tf32" if tf32 else "f32"
+        out[key] = dict(fid5k_eval_s=total, generation_s=gen_s, inception_s=inc_s, frechet_s=fd_s,
+                        real_extraction_s=real_s, inception_img_per_s=ev.gen_batch * ev.n_chunks / inc_s,
+                        fid=score["fid"])
+        print(f"  TF32 {'on ' if tf32 else 'off'}: fid5k_eval_s {total:.3f} s = generation {gen_s:.3f} + Inception "
+              f"{inc_s:.3f} + Fréchet {fd_s:.3f} (separate runs; sum {gen_s + inc_s + fd_s:.3f}); real-set "
+              f"extraction ({EVAL_N} uint8, batch {REAL_BATCH}) {real_s:.3f} s; Inception 299px batch "
+              f"{ev.gen_batch}: {out[key]['inception_img_per_s']:.1f} img/s; FID {score['fid']:.6f} [{card}]", flush=True)
+        del acts, imgs
+    torch.backends.cudnn.allow_tf32 = False
+    return out
 
 
 def main() -> int:
@@ -707,18 +947,37 @@ def main() -> int:
 
     print("[9] training timing", flush=True)
     measure_training(state, tcfg, card)
+    del state
+
+    print(f"[10] K5: K4 cut after each stage, vs plain at batch {B} (TF32 off), then the ablation at batch "
+          f"{bench_fused_ablate.BATCH}", flush=True)
+    k5 = check_k5()
+
+    print(f"[11] eval slice: 256px g_ema, FID@{EVAL_N} at gen_batch {GEN_BATCH}, seeded Inception", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    g_ema, ev, incp, real, real_s = build_eval()
+    print(f"  real set: {EVAL_N} uint8 images, activations in {real_s:.2f} s (first call)", flush=True)
+    eval_counts = eval_slice(g_ema, ev)
+    print(f"  peak device memory of the eval: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+    print(f"[12] eval slice vs plain (CPU), tolerance {SLICE_TOL} * max|ref|", flush=True)
+    eval_vs_plain(g_ema, ev, incp)
+
+    print("[13] eval timing", flush=True)
+    measure_eval(g_ema, ev, real, card)
+    print(f"  peak device memory of the eval phases: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     print(f"  chip_smoke total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         k = per_kernel[name]
-        launches = gen_counts[name] if name == "convt_blur_act" else train_counts[name]
+        by_run = {"generation": gen_counts[name], "training": train_counts[name], "eval": eval_counts[name]}
         kernels.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces, launches=launches,
+            name=name, route="cuda", source=source, replaces=replaces, launches=sum(by_run.values()),
             max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
-            bound_by=k["bound_by"], library_ms=None, shape=k["shape"],
-            run="generation" if name == "convt_blur_act" else "training",
+            bound_by=k["bound_by"], library_ms=None, shape=k["shape"], launches_by_run=by_run,
         ))
+    kernels += k5["entries"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

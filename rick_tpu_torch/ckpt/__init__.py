@@ -6,6 +6,7 @@ from rick_tpu_torch.ckpt.convert import (
     discriminator_state_dict_from_jax,
     g_masks_from_jax,
     generator_state_dict_from_jax,
+    inception_state_dict_from_jax,
     load_checkpoint,
     merge_state_dict_lenient,
     train_state_from_jax,
@@ -16,6 +17,7 @@ __all__ = [
     "discriminator_state_dict_from_jax",
     "g_masks_from_jax",
     "generator_state_dict_from_jax",
+    "inception_state_dict_from_jax",
     "load_checkpoint",
     "merge_state_dict_lenient",
     "train_state_from_jax",

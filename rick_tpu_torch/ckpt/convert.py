@@ -1,5 +1,6 @@
 """rick_tpu parameter pytrees and train states -> the port's state dicts and
-`TrainState`, and rosinality `.pt` checkpoint loading.  Port of
+`TrainState` (and Inception params -> the port's `InceptionV3`), and
+rosinality `.pt` checkpoint loading.  Port of
 `rick_tpu/ckpt/convert.py`.
 
 The converters take `rick_tpu`'s params as nested dicts and lists of arrays
@@ -86,6 +87,13 @@ def discriminator_state_dict_from_jax(cfg: DiscriminatorConfig, params) -> Dict[
         sd[f"final_linear.{i}.weight"] = _n(layer["weight"])
         sd[f"final_linear.{i}.bias"] = _n(layer["bias"])
     return sd
+
+
+def inception_state_dict_from_jax(params) -> Dict[str, np.ndarray]:
+    """`rick_tpu`'s flat Inception params -> f32 numpy arrays under the same
+    keys: both packages use torchvision's, so the dict goes as it is to
+    `inception_from_params`, which keeps the keys of the port's module."""
+    return {k: _n(v) for k, v in params.items()}
 
 
 def g_masks_from_jax(masks) -> Dict[str, np.ndarray]:

@@ -40,6 +40,22 @@
 // Mid positions outside [0, 2H] come out as zero by themselves (they only
 // touch zero-padded input), so the blur's zero padding needs no special case.
 // Cout must be a multiple of 4 (16-byte weight copies).
+//
+// The kernel body is a template on a stage, so that the same code can be
+// timed with its later stages cut out (K5, the counterpart of
+// scripts/bench_fused_ablate.py::make_kernel, whose Pallas stages dma /
+// matmul / blend / full map to load / conv / blur / full).  Every stage
+// writes the whole (N, Cout, 2H, 2W) output, so that two stages' times
+// differ by the work of the later one:
+//   LOAD: every cp.async stage of the Cin loop is issued and waited on, no
+//         FMAs; writes 0;
+//   CONV: writes the transposed conv's mid pixel at each output position,
+//         conv_transpose2d(xs, w, stride 2)[..., :2H, :2W];
+//   BLUR: the 4-tap blur of the mid tile, without demod, noise, bias or
+//         activation;
+//   FULL: the kernel (K4).
+// One entry point, rick_convt_blur_act_stage, launches the stage it is given;
+// K4 is its stage FULL.
 
 #include "common.cuh"
 
@@ -86,6 +102,9 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+enum Stage { LOAD = 0, CONV = 1, BLUR = 2, FULL = 3 };
+
+template <int STAGE>
 __global__ void __launch_bounds__(THREADS, 3)
 convt_blur_act_kernel(const float* __restrict__ xs,     // (N, Cin, H, W)
                       const float* __restrict__ wt,     // (Cin, 9, Cout), tap = ku*3 + kv
@@ -154,8 +173,9 @@ convt_blur_act_kernel(const float* __restrict__ xs,     // (N, Cin, H, W)
     const float* xs_s = smem + (chunk & 1) * STAGE_FLOATS;
     const float4* ws4 = reinterpret_cast<const float4*>(xs_s + XS_FLOATS) + cg;
 
+    // the load stage of the ablation stops here: its copies are waited on, no FMA runs
 #pragma unroll 2
-    for (int ck = 0; ck < CK; ++ck) {
+    for (int ck = 0; ck < (STAGE == LOAD ? 0 : CK); ++ck) {
       // xv[R][c]: R = 0 -> input row i-1, 1 -> i; c = 0..5 -> cols j-1 .. j+4
       float xv[2][QG + 1];
       const float* xp = xs_s + ck * XP * XPS + xoff;
@@ -182,7 +202,7 @@ convt_blur_act_kernel(const float* __restrict__ xs,     // (N, Cin, H, W)
   }
 
   // mid tile: local (ml, mc) <-> mid position (y0 - 2 + ml, x0 - 2 + mc)
-  {
+  if (STAGE != LOAD) {
     const int base = (qg / 2) * 2 * MT + (qg % 2) * QG * 2;
 #pragma unroll
     for (int k = 0; k < QG; ++k)
@@ -203,40 +223,74 @@ convt_blur_act_kernel(const float* __restrict__ xs,     // (N, Cin, H, W)
     const int cl = idx / (TILE * TILE), ly = (idx / TILE) % TILE, lx = idx % TILE;
     const int oy = y0 + ly, ox = x0 + lx;
     if (oy >= OH || ox >= OW) continue;
-    const float* m = mid_s + cl * MT * MT + (ly + 1) * MT + (lx + 1);
-    float s = 0.f;
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      const float* r = m + t * MT;
-      const float kt = t == 0 ? k0 : t == 1 ? k1 : t == 2 ? k2 : k3;
-      s += kt * (k0 * r[0] + k1 * r[1] + k2 * r[2] + k3 * r[3]);
-    }
     const int co = co0 + cl;
-    const float nz = __ldg(noise + ((long long)(noise_batched ? n : 0) * OH + oy) * OW + ox);
-    float v = s * __ldg(demod + (long long)n * Cout + co) + nz + __ldg(bias + co);
-    if (use_act) v = rick::lrelu(v, slope, gain);
-    y[(((long long)n * Cout + co) * OH + oy) * OW + ox] = v;
+    float* out = y + (((long long)n * Cout + co) * OH + oy) * OW + ox;
+    if constexpr (STAGE == LOAD) {
+      *out = 0.f;
+    } else if constexpr (STAGE == CONV) {
+      *out = mid_s[cl * MT * MT + (ly + 2) * MT + (lx + 2)];
+    } else {
+      const float* m = mid_s + cl * MT * MT + (ly + 1) * MT + (lx + 1);
+      float s = 0.f;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const float* r = m + t * MT;
+        const float kt = t == 0 ? k0 : t == 1 ? k1 : t == 2 ? k2 : k3;
+        s += kt * (k0 * r[0] + k1 * r[1] + k2 * r[2] + k3 * r[3]);
+      }
+      if constexpr (STAGE == BLUR) {
+        *out = s;
+      } else {
+        const float nz = __ldg(noise + ((long long)(noise_batched ? n : 0) * OH + oy) * OW + ox);
+        float v = s * __ldg(demod + (long long)n * Cout + co) + nz + __ldg(bias + co);
+        if (use_act) v = rick::lrelu(v, slope, gain);
+        *out = v;
+      }
+    }
   }
 }
 
-}  // namespace
-
-extern "C" int rick_convt_blur_act(const void* xs, const void* wt, const void* demod,
-                                   const void* noise, const void* bias, void* y, int N, int Cin,
-                                   int Cout, int H, int W, int noise_batched, float k0, float k1,
-                                   float k2, float k3, int use_act, float slope, float gain,
-                                   void* stream) {
+template <int STAGE>
+int launch(const void* xs, const void* wt, const void* demod, const void* noise, const void* bias,
+           void* y, int N, int Cin, int Cout, int H, int W, int noise_batched, float k0, float k1,
+           float k2, float k3, int use_act, float slope, float gain, void* stream) {
   if (Cout % 4 != 0) return (int)cudaErrorInvalidValue;
   // above 48 KB of dynamic shared memory only after opting in (per device)
-  cudaError_t e = cudaFuncSetAttribute(convt_blur_act_kernel,
+  cudaError_t e = cudaFuncSetAttribute(convt_blur_act_kernel<STAGE>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
   const int tiles = ((2 * H + TILE - 1) / TILE) * ((2 * W + TILE - 1) / TILE);
   const dim3 grid(tiles, (Cout + CO_T - 1) / CO_T, N);
-  convt_blur_act_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+  convt_blur_act_kernel<STAGE><<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(xs), static_cast<const float*>(wt),
       static_cast<const float*>(demod), static_cast<const float*>(noise),
       static_cast<const float*>(bias), static_cast<float*>(y), Cin, Cout, H, W, noise_batched,
       k0, k1, k2, k3, use_act, slope, gain);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The kernel cut after `stage` (0 load, 1 conv, 2 blur, 3 full = K4).
+extern "C" int rick_convt_blur_act_stage(const void* xs, const void* wt, const void* demod,
+                                         const void* noise, const void* bias, void* y, int N,
+                                         int Cin, int Cout, int H, int W, int noise_batched,
+                                         float k0, float k1, float k2, float k3, int use_act,
+                                         float slope, float gain, int stage, void* stream) {
+  switch (stage) {
+    case LOAD:
+      return launch<LOAD>(xs, wt, demod, noise, bias, y, N, Cin, Cout, H, W, noise_batched, k0, k1,
+                          k2, k3, use_act, slope, gain, stream);
+    case CONV:
+      return launch<CONV>(xs, wt, demod, noise, bias, y, N, Cin, Cout, H, W, noise_batched, k0, k1,
+                          k2, k3, use_act, slope, gain, stream);
+    case BLUR:
+      return launch<BLUR>(xs, wt, demod, noise, bias, y, N, Cin, Cout, H, W, noise_batched, k0, k1,
+                          k2, k3, use_act, slope, gain, stream);
+    case FULL:
+      return launch<FULL>(xs, wt, demod, noise, bias, y, N, Cin, Cout, H, W, noise_batched, k0, k1,
+                          k2, k3, use_act, slope, gain, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

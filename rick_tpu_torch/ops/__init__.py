@@ -5,10 +5,18 @@ Every kernel wrapper (`fused_bias_act`, `fused_bias_act_bwd`,
 tensors and launches its CUDA kernel for CUDA tensors; `KERNELS` lists them,
 each with a `launches` count.  `fused_bias_act` and `modconv_epilogue` are
 differentiable twice; `convt_blur_act` is forward only, as in JAX.
+`convt_blur_act_stage` (K5, the stage ablation of `convt_blur_act`) runs only
+in the ablation tool and counts its launches per stage.
 """
 
 from rick_tpu_torch.ops.fused_act import fused_leaky_relu, fused_leaky_relu_kml, scaled_leaky_relu
-from rick_tpu_torch.ops.fused_upsample import convt_blur_act, convt_blur_act_ref
+from rick_tpu_torch.ops.fused_upsample import (
+    STAGES,
+    convt_blur_act,
+    convt_blur_act_ref,
+    convt_blur_act_stage,
+    convt_blur_act_stage_ref,
+)
 from rick_tpu_torch.ops.kernels import (
     fused_bias_act,
     fused_bias_act_bwd,
@@ -33,6 +41,7 @@ KERNELS = (fused_bias_act, fused_bias_act_bwd, modconv_epilogue, convt_blur_act)
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+    convt_blur_act_stage.launches = dict.fromkeys(STAGES, 0)
 
 
 def launch_counts() -> dict:
@@ -41,9 +50,12 @@ def launch_counts() -> dict:
 
 __all__ = [
     "KERNELS",
+    "STAGES",
     "blur",
     "convt_blur_act",
     "convt_blur_act_ref",
+    "convt_blur_act_stage",
+    "convt_blur_act_stage_ref",
     "downsample2d",
     "fused_bias_act",
     "fused_bias_act_bwd",

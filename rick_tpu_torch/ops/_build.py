@@ -46,10 +46,11 @@ SIGNATURES = {
     # out, demod, noise, noise_weight, bias, y, B, C, HW, noise_batched, slope, scale, stream
     "rick_modconv_epilogue": [_P, _P, _P, _P, _P, _P, _I, _I, _L, _I, _F, _F, _P],
     # xs, wt, demod, noise, bias, y, N, Cin, Cout, H, W, noise_batched,
-    # k0, k1, k2, k3, use_act, slope, gain, stream
-    "rick_convt_blur_act": [
+    # k0, k1, k2, k3, use_act, slope, gain, stage (0 load, 1 conv, 2 blur,
+    # 3 full), stream
+    "rick_convt_blur_act_stage": [
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-        _F, _F, _F, _F, _I, _F, _F, _P,
+        _F, _F, _F, _F, _I, _F, _F, _I, _P,
     ],
 }
 

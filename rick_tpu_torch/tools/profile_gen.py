@@ -1,13 +1,16 @@
-"""Device-time breakdown of the 256px forward slice on one GPU.
+"""Device-time breakdown of the 256px forward slice and of one evaluator
+chunk on one GPU.
 
     python -m rick_tpu_torch.tools.profile_gen
 
 Builds a seeded Generator(256) / Discriminator(256) on the card, warms up,
 then profiles one random-noise generation at batch 100 (the evaluator's
-256px batch, as in chip_smoke.py) and one D forward at batch 16 under
-`torch.profiler`.  Prints, per phase, the wall time, the summed device time,
-the device busy share, the launches and the kernels by device time.  TF32 is off, as in
-chip_smoke.py.
+256px batch, as in chip_smoke.py), one D forward at batch 16, and one chunk
+of the FID evaluation (`Evaluator.activations`: batch-100 generation through
+K4 and the full 299px InceptionV3 on the seeded init) and its Inception
+part alone under `torch.profiler`; the evaluation is 50 such chunks.  Prints, per phase, the
+wall time, the summed device time, the device busy share, the launches and
+the kernels by device time.  TF32 is off, as in chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -15,9 +18,11 @@ from __future__ import annotations
 import subprocess
 import time
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from rick_tpu_torch.metrics import Evaluator
 from rick_tpu_torch.nn import Discriminator, Generator
 from rick_tpu_torch.ops import _build, launch_counts, reset_launch_counts
 
@@ -75,6 +80,14 @@ def main() -> None:
         x = g([z], rng=nrng, fast=True)[0][:D_BATCH].contiguous()
         profile_phase(f"generate_b{GEN_BATCH}", lambda: g([z], rng=nrng, fast=True))
         profile_phase(f"d_forward_b{D_BATCH}", lambda: d(x))
+    # the real set only fixes the statistics the FID compares with: two cached
+    # rows stand in for it, so that no extraction runs here
+    ev = Evaluator(g.cfg, fid_real_samples=np.zeros((1, 3, 256, 256), np.uint8), gen_batch=GEN_BATCH,
+                   real_acts=np.zeros((2, 2048)), device=dev)
+    profile_phase(f"eval_chunk_b{GEN_BATCH}", lambda: ev.activations(g, z, rng=nrng))
+    with torch.inference_mode():
+        imgs = g([z], rng=nrng, fast=True)[0]
+        profile_phase(f"inception_b{GEN_BATCH}", lambda: ev.inception.pool3(imgs))
 
 
 if __name__ == "__main__":

@@ -176,9 +176,10 @@ def test_small_training_iteration_matches_the_cpu_path(cuda):
     tensor's largest, so that no gradient's rounding noise becomes a whole
     step.  Losses within 1e-3 (the path penalty squares a gradient taken
     through all of G).  The step each param took, per tensor in norm, as
-    chip_smoke.py compares it: |step_card - step_cpu| <= 1% of |step_cpu|
-    (5% for a one-element noise weight, whose gradient is one sum over a
-    layer that cancels to a small part of its terms) + an RMS of 0.1% of lr
+    chip_smoke.py compares each tensor: |step_card - step_cpu| <= 1% of
+    |step_cpu| (5% for a one-element noise weight, whose gradient is one sum
+    over a layer that cancels to a small part of its terms; here each alone,
+    at 256px chip_smoke.py holds them as one vector) + an RMS of 0.1% of lr
     per entry.  The two sum every conv in another order, and two card runs
     of the same iteration differ from each other as much: through the path
     penalty's double backward, single entries of a step move by up to ~0.6%
@@ -219,3 +220,60 @@ def test_small_training_iteration_matches_the_cpu_path(cuda):
             err = float((step_card - step_cpu).norm())
             rtol = 5e-2 if step_cpu.numel() == 1 else 1e-2
             assert err <= rtol * float(step_cpu.norm()) + 1e-3 * lr * step_cpu.numel() ** 0.5, (name, k, err)
+
+
+@pytest.mark.parametrize("N,Cin,Cout,H", [(2, 8, 8, 4), (1, 16, 4, 8), (2, 32, 32, 33), (1, 512, 64, 4)])
+def test_convt_blur_act_stages_match_plain_and_full_is_k4(cuda, N, Cin, Cout, H):
+    """K5: each stage of K4's kernel against its plain version (load exactly
+    0; conv, blur, full 1e-4 of max|ref|, sums of 9*Cin products in another
+    order than cuDNN), and the full stage bitwise equal to K4."""
+    a = _convt_args(N, Cin, Cout, H, None, cuda)
+    ops.reset_launch_counts()
+    for stage in ops.STAGES:
+        got = ops.convt_blur_act_stage(stage, *a)
+        ref = ops.convt_blur_act_stage_ref(stage, *a)
+        assert got.shape == ref.shape
+        if stage == "load":
+            assert not got.any()
+        else:
+            assert _rel(got, ref) <= 1e-4, stage
+    assert ops.convt_blur_act_stage.launches == dict.fromkeys(ops.STAGES, 1)
+    assert torch.equal(ops.convt_blur_act_stage("full", *a), ops.convt_blur_act(*a))
+
+
+def test_uint8_activations_on_the_card_match_the_cpu(cuda):
+    """get_activations of uint8 pixels, dequantized on the card, against the
+    CPU: 1e-4 of max|ref| (cuDNN sums the convolutions in another order)."""
+    from rick_tpu_torch.metrics import get_activations, inception_from_params, inception_init_np
+
+    params = inception_init_np(0)
+    u8 = np.random.default_rng(3).integers(0, 256, (4, 3, 64, 64), dtype=np.uint8)
+    got = get_activations(u8, 2, inception_from_params(params, device=cuda))
+    want = get_activations(u8, 2, inception_from_params(params, device="cpu"))
+    assert got.shape == (4, 2048) and _rel(torch.from_numpy(got), torch.from_numpy(want)) <= 1e-4
+
+
+def test_small_evaluator_matches_the_cpu_path(cuda):
+    """16px g_ema through K4 on the card and the plain chain on the CPU, into
+    the cut Inception: activations within 1e-4 of max|ref|; the FID of the
+    card's draws is finite, and K4 launched 6 times... per chunk (2 upsample
+    layers at 16px, 2 chunks)."""
+    from rick_tpu_torch.metrics import Evaluator, inception_init_np
+    from rick_tpu_torch.nn import GeneratorConfig
+
+    g = Generator(16, rng=torch.Generator().manual_seed(0))
+    real = np.random.default_rng(0).integers(0, 256, (8, 3, 16, 16), dtype=np.uint8)
+    kw = dict(fid_real_samples=real, inception_nsamples=8, batch_size=8, gen_batch=4,
+              inception_params=inception_init_np(0), inception_stop_at="Mixed_6a", inception_resize_to=75)
+    z = _rand((8, 512), 4)
+    want = Evaluator(GeneratorConfig(16), device="cpu", **kw).activations(g, z)
+    ev = Evaluator(GeneratorConfig(16), device=cuda, **kw)
+    g_c = g.to(cuda)
+    ops.reset_launch_counts()
+    got = ev.activations(g_c, z.to(cuda))
+    assert ops.launch_counts()["convt_blur_act"] == 2 * 2
+    assert _rel(got, want) <= 1e-4
+    ops.reset_launch_counts()
+    score = ev.compute_inception_score(g_c, kid=True)
+    assert np.isfinite(score["fid"]) and np.isfinite(score["kid"])
+    assert ops.launch_counts()["convt_blur_act"] == 2 * 2

@@ -14,7 +14,12 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from rick_tpu_torch.ckpt import discriminator_state_dict_from_jax, generator_state_dict_from_jax
+from rick_tpu_torch.ckpt import (
+    discriminator_state_dict_from_jax,
+    generator_state_dict_from_jax,
+    inception_state_dict_from_jax,
+)
+from rick_tpu_torch.metrics import InceptionV3, inception_from_params, randomize_bn  # noqa: F401
 from rick_tpu_torch.nn import Discriminator, Generator
 
 
@@ -85,3 +90,9 @@ def port_discriminator(dcfg, params) -> Discriminator:
     sd = discriminator_state_dict_from_jax(dcfg, params)
     d.load_state_dict({k: t(v) for k, v in sd.items()}, strict=True)
     return d.eval()
+
+
+def port_inception(params, *, dtype=torch.float32, channels_last: bool = False) -> InceptionV3:
+    """The port's InceptionV3 on the CPU from `rick_tpu`'s flat Inception params."""
+    return inception_from_params(inception_state_dict_from_jax(params), device="cpu", dtype=dtype,
+                                 channels_last=channels_last)
