@@ -5,7 +5,11 @@
 
 Phases, each raising on failure:
   0. print the card (nvidia-smi name, power limit); exit non-zero without CUDA
-  1. build the CUDA kernels of `rick_tpu_torch/csrc` (one nvcc per source, in parallel)
+  1. build the CUDA kernels of `rick_tpu_torch/csrc` (one nvcc per source, in
+     parallel); print every kernel's registers and spills (ptxas), and the
+     HGMMA (wgmma) count in the SASS of each of K4's 12 instantiations (4
+     stages x 3 tiles); K4 must not spill and its conv must run on the
+     tensor cores
   2. per forward kernel: compare with its plain PyTorch version at every shape
      the 256px G/D forward gives it (batch 4, TF32 off), and time both
   3. the generation slice: seeded 256px G and D on the card, saved and loaded
@@ -37,7 +41,8 @@ Phases, each raising on failure:
      ablation's three shapes at batch 4, on the ablation's own batch-100
      inputs, and at the three smaller upsample shapes at batch 100 (TF32
      off); then the ablation tool's run at batch 100 (its own entry point),
-     whose launches are counted, and its table
+     whose launches are counted, and its table: each stage's ms, bound and
+     share of bound, and K4 against `F.conv_transpose2d` alone
  11. the eval slice: seeded 256px g_ema, the seeded Inception with randomized
      batch-norm statistics, 5000 seeded uint8 "real" images; the recipe's
      Evaluator (5000 samples, gen_batch 100, real batch 25) and one
@@ -94,6 +99,11 @@ from rick_tpu_torch.ops import (
     reset_launch_counts,
 )
 from rick_tpu_torch.tools import bench_fused_ablate
+# the card's published peaks (tools/roofline.py): bytes at 3.35 TB/s, CUDA-core
+# operations at 67 TFLOP/s f32, and K4's and K5's conv at the route the kernel
+# takes, 3xTF32 on the tensor cores (3 x its operations at 495 TFLOP/s); a
+# kernel's bound is the largest of the three
+from rick_tpu_torch.tools.roofline import TF32_PASSES, bound, convt_ops
 from rick_tpu_torch.train import (
     TrainConfig,
     accumulate_fims,
@@ -164,8 +174,6 @@ SOURCES = {
     "convt_blur_act": ("rick_tpu_torch/csrc/convt_blur_act.cu", "rick_tpu/ops/fused_upsample.py:257"),
 }
 K5_SOURCE = ("rick_tpu_torch/csrc/convt_blur_act.cu", "scripts/bench_fused_ablate.py:153")
-# NVIDIA H100 SXM data sheet (dense): HBM 3.35 TB/s; f32 outside the tensor cores 67 TFLOP/s
-PEAK_BYTES_PER_S, PEAK_F32_FLOP_PER_S = 3.35e12, 67e12
 
 
 def require(cond: bool, msg: str) -> None:
@@ -225,14 +233,10 @@ def norm_err(got: torch.Tensor, ref: torch.Tensor) -> float:
     return d / r if r > 0 else (0.0 if d == 0 else math.inf)
 
 
-def bound(nbytes: float, flops: float):
-    """(least ms, what bounds it) on the card at its published peaks."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOP_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def case(name, label, kern, plain, nbytes, flops):
-    return dict(name=name, label=label, kern=kern, plain=plain, nbytes=nbytes, flops=flops)
+def case(name, label, kern, plain, nbytes, flops, tf32_flops=0):
+    """A kernel check: `flops` on the CUDA cores (f32), `tf32_flops` on the
+    tensor cores (TF32), both as the bound counts them."""
+    return dict(name=name, label=label, kern=kern, plain=plain, nbytes=nbytes, flops=flops, tf32_flops=tf32_flops)
 
 
 def run_cases(cases) -> dict:
@@ -249,9 +253,10 @@ def run_cases(cases) -> dict:
             require(bool(torch.isfinite(got).all()), f"{name} {label}: non-finite output")
             abs_err, rel = rel_err(got, ref)
             ms, plain_ms = cuda_ms(c["kern"]), cuda_ms(c["plain"])
-            bound_ms, bound_by = bound(c["nbytes"], c["flops"])
+            bound_ms, bound_by = bound(c["nbytes"], c["flops"], c["tf32_flops"])
             print(f"  {name:18s} {label:44s} max_abs_err={abs_err:.3e} rel={rel:.3e} "
-                  f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
+                  f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}, "
+                  f"{bound_ms / ms:.0%} of it)", flush=True)
             require(rel <= KERNEL_TOL[name], f"{name} {label}: rel err {rel:.3e} > {KERNEL_TOL[name]}")
             rows.append(dict(kernel=name, shape=label, max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=bound_by))
@@ -304,14 +309,16 @@ def forward_cases(gen: torch.Generator):
         w = randn(cout, cin, 3, 3, scale=1.0 / (cin * 9) ** 0.5)
         demod, bias = uniform(B, cout), randn(cout, scale=0.1)
         y_numel = B * cout * 4 * H * H
-        # the transposed conv's MACs, the separable blur's (4 + 4 taps per
-        # output), and the epilogue
-        flops = 2 * B * cin * cout * 9 * H * H + 2 * 8 * y_numel + 4 * y_numel
+        # the separable blur's MACs (4 + 4 taps per output) and the epilogue
+        # on the CUDA cores; the transposed conv's MACs as 3xTF32
+        flops = 2 * 8 * y_numel + 4 * y_numel
+        tf32_flops = TF32_PASSES * convt_ops(B, cin, cout, H)
         for nb in (B, 1):
             a = (xs, w, demod, randn(nb, 1, 2 * H, 2 * H, scale=0.1), bias)
             nbytes = 4 * (xs.numel() + w.numel() + demod.numel() + nb * 4 * H * H + cout + y_numel)
             cases.append(case("convt_blur_act", f"{(B, cin, H, H)}->{cout} noise batch {nb}",
-                              lambda a=a: convt_blur_act(*a), lambda a=a: convt_blur_act_ref(*a), nbytes, flops))
+                              lambda a=a: convt_blur_act(*a), lambda a=a: convt_blur_act_ref(*a), nbytes, flops,
+                              tf32_flops))
     return cases
 
 
@@ -751,12 +758,14 @@ def check_k5() -> dict:
     print(f"  launches in the ablation run: {counts}")
     require(all(v > 0 for v in counts.values()), f"a K5 stage did not launch in the ablation: {counts}")
     for r in rows:
-        print("  " + bench_fused_ablate.format_row(r))
-        print("    bound ms: " + "  ".join(f"{st}={bound(*r['work'][st])[0]:.3f}" for st in STAGES), flush=True)
+        print("  " + bench_fused_ablate.format_row(r), flush=True)
+        full, cudnn = r["ms"]["full"], r["conv_transpose2d_ms"]
+        print(f"    K4 (full) {full:.3f} ms vs F.conv_transpose2d alone {cudnn:.3f} ms: "
+              f"{'faster' if full < cudnn else 'SLOWER'}, {cudnn / full:.2f}x", flush=True)
     top = max(rows, key=lambda r: r["ms"]["full"])
     entries = []
     for st in STAGES:
-        bound_ms, bound_by = bound(*top["work"][st])
+        bound_ms, bound_by = bench_fused_ablate.stage_bound(st, top["batch"], top["cin"], top["cout"], top["h"])
         entries.append(dict(
             name=f"convt_blur_act_stage.{st}", route="cuda", source=K5_SOURCE[0], replaces=K5_SOURCE[1],
             launches=counts[st], max_abs_err=errs[st], ms=top["ms"][st], plain_ms=top["plain_ms"][st],
@@ -910,9 +919,19 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.lib()
     print(f"  nvcc build {_build.build_seconds:.1f} s, load {time.perf_counter() - t0:.1f} s total", flush=True)
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    report = _build.ptxas_report()
+    for fn in report:
+        print(f"  ptxas: {fn['name']}: {fn['registers']} registers, {fn['spill_stores']} bytes spill stores, "
+              f"{fn['spill_loads']} bytes spill loads", flush=True)
+    k4 = [fn for fn in report if "convt_blur_act_kernel" in fn["name"]]
+    require(len(k4) == 12, f"expected 12 instantiations of K4's kernel (4 stages x 3 tiles), ptxas shows {len(k4)}")
+    spilled = [fn["name"] for fn in k4 if fn["spill_stores"] or fn["spill_loads"]]
+    require(not spilled, f"K4's kernel spills registers in {spilled}")
+    # K4's conv runs on the tensor cores: HGMMA (wgmma) in every stage that computes it
+    hgmma = {k: v for k, v in _build.sass_counts("HGMMA").items() if "convt_blur_act_kernel" in k}
+    print(f"  SASS HGMMA per K4 instantiation: {hgmma}", flush=True)
+    no_mma = [k for k, v in hgmma.items() if not v and "kernel<0," not in k and "kernelILi0E" not in k]
+    require(len(hgmma) == 12 and not no_mma, f"K4's conv has no HGMMA in {no_mma or hgmma}")
 
     print(f"[2] forward kernels vs plain, batch {B}, TF32 off", flush=True)
     per_kernel = run_cases(forward_cases(torch.Generator(device=DEV).manual_seed(1234)))

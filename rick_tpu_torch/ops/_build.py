@@ -10,7 +10,8 @@ existing files.
 
 Every entry point takes its pointers and the CUDA stream as `void*`, launches
 on the stream it is given, and returns `cudaGetLastError()`; `check()` raises
-on a non-zero code.
+on a non-zero code.  `ptxas_report()` reads each kernel's registers and
+spills from the build's log (`-Xptxas -v`).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -91,6 +93,7 @@ def build() -> Path:
     out = build_path()
     if out.exists():
         build_seconds = 0.0
+        build_log = (out / "build.log").read_text()
         return out
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     tmp.mkdir(parents=True)
@@ -131,6 +134,53 @@ def lib() -> types.SimpleNamespace:
             entries[name] = fn
         _lib = types.SimpleNamespace(**entries)
     return _lib
+
+
+def _demangle(names: List[str]) -> List[str]:
+    """Readable kernel names (`kernel<3, 32>`), through c++filt where there is one."""
+    tool = shutil.which("c++filt")
+    if tool is None or not names:
+        return names
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True, timeout=60).stdout
+    readable = out.splitlines()
+    if len(readable) != len(names):
+        return names
+    return [r.split("(anonymous namespace)::")[-1].removeprefix("void ").split("(")[0] for r in readable]
+
+
+def ptxas_report(log: Optional[str] = None) -> List[dict]:
+    """Per kernel of the build (`-Xptxas -v`): name, registers, spill stores
+    and spill loads in bytes."""
+    kernels: List[dict] = []
+    for line in (build_log if log is None else log).splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            kernels.append(dict(name=m.group(1), registers=0, spill_stores=0, spill_loads=0))
+        elif kernels and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            kernels[-1].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif kernels and (m := re.search(r"Used (\d+) registers", line)):
+            kernels[-1]["registers"] = int(m.group(1))
+    for k, name in zip(kernels, _demangle([k["name"] for k in kernels])):
+        k["name"] = name
+    return kernels
+
+
+def sass_counts(opcode: str) -> dict:
+    """{kernel: number of SASS instructions starting with `opcode`} over the
+    built libraries (`cuobjdump -sass`), e.g. "HGMMA" for the tensor cores'
+    wgmma."""
+    counts = {}
+    tool = Path(nvcc_path()).with_name("cuobjdump")
+    for so in sorted(build().glob("*.so")):
+        out = subprocess.run([str(tool), "-sass", str(so)], capture_output=True, text=True, check=True,
+                             timeout=300).stdout
+        name = None
+        for line in out.splitlines():
+            if m := re.search(r"Function : (\S+)", line):
+                name = m.group(1)
+                counts[name] = 0
+            elif name and re.search(rf"\*/\s+(@!?U?P\w+\s+)?{opcode}\b", line):
+                counts[name] += 1
+    return dict(zip(_demangle(list(counts)), counts.values()))
 
 
 def check(code: int, name: str) -> None:

@@ -11,6 +11,14 @@ it several times.  Forward only.
 stages (load, conv, blur, full), the counterpart of the Pallas ablation
 `scripts/bench_fused_ablate.py`; `convt_blur_act_stage_ref` is its plain
 version.  `tools/bench_fused_ablate.py` times it.
+
+The kernel runs the transposed conv on the tensor cores in 3xTF32: each
+operand v is split as hi = tf32(v), lo = tf32(v - hi), and the products
+hi*hi + hi*lo + lo*hi are summed in f32.  The wrapper splits the weights
+once per call (`tf32_round`); the kernel splits the activations as it loads
+them, with the same rounding.  `convt_blur_act_tf32_ref` repeats that
+arithmetic in plain PyTorch, so that the CPU tests can show what 3xTF32 and
+plain TF32 keep of the f32 chain; nothing on the main path calls it.
 """
 
 from __future__ import annotations
@@ -47,12 +55,56 @@ def convt_blur_act_ref(
     return out
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as the card's `cvt.rna.tf32.f32` and the kernel's split: the low
+    13 bits cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def convt_blur_act_tf32_ref(xs, weight, demod, noise, act_bias, *, passes: int = 3, **kw):
+    """`convt_blur_act_ref` with the transposed conv's operands split as the
+    kernel splits them, hi = tf32(v), lo = tf32(v - hi): passes=3 sums
+    hi*hi + hi*lo + lo*hi (the kernel's 3xTF32), passes=1 takes hi*hi alone
+    (plain TF32).  Each product of two TF32 values is exact in f32."""
+    _require(passes in (1, 3), f"convt_blur_act_tf32_ref: passes {passes} is not 1 or 3")
+    x_hi, w_hi = tf32_round(xs), tf32_round(weight)
+    pairs = [(x_hi, w_hi)]
+    if passes == 3:
+        pairs += [(x_hi, tf32_round(weight - w_hi)), (tf32_round(xs - x_hi), w_hi)]
+    # the chain is linear up to the noise: blur(demod * sum of convs) = the sum of the chains
+    zero = torch.zeros_like(noise)
+    blur_kernel = kw.get("blur_kernel", (1, 3, 3, 1))
+    out = sum(convt_blur_act_ref(x, w, demod, zero, None, blur_kernel=blur_kernel, use_act=False) for x, w in pairs)
+    out = out + noise
+    if act_bias is not None:
+        out = out + act_bias.reshape(1, -1, 1, 1)
+    if kw.get("use_act", True):
+        out = torch.where(out >= 0, out, out * kw.get("slope", 0.2)) * kw.get("gain", math.sqrt(2.0))
+    return out
+
+
 def blur_taps(blur_kernel) -> tuple:
     """Per-axis correlation taps of the upsample blur: the 1-D kernel,
     normalized, times the per-axis gain 2, flipped (upfirdn2d convolves)."""
     k = np.asarray(blur_kernel, np.float64)
     k = k / k.sum() * 2.0
     return tuple(float(v) for v in k[::-1])
+
+
+def _kernel_weights(weight: torch.Tensor) -> torch.Tensor:
+    """(Cout, Cin, 3, 3) -> (ceil(Cin/4), 9, 2, Cout, 4), the layout of the
+    kernel's B operand: for input channels 4q .. 4q + 3, tap and output
+    channel, the TF32 hi and lo parts of each weight, 4 channels to a 16-byte
+    row (K-major core matrices); input channels past Cin are zero."""
+    cout, cin = weight.shape[:2]
+    quads = (cin + 3) // 4
+    w = weight.permute(1, 2, 3, 0).reshape(cin, 9, cout)
+    w = F.pad(w, (0, 0, 0, 0, 0, 4 * quads - cin)).view(quads, 4, 9, cout)
+    hi = tf32_round(w)
+    lo = tf32_round(w - hi)
+    return torch.stack((hi, lo)).permute(1, 3, 0, 4, 2).contiguous()
 
 
 def _launch(name: str, stage: str, xs, weight, demod, noise, act_bias, *,
@@ -81,9 +133,14 @@ def _launch(name: str, stage: str, xs, weight, demod, noise, act_bias, *,
     tensors = dict(xs=xs, weight=weight, demod=demod, noise=noise, act_bias=act_bias)
     check_cuda_f32(name, xs.device, **tensors)
     forbid_autograd(name, **tensors)
-    # (Cout, Cin, 3, 3) -> (Cin, 9, Cout): a block's 32 output channels of one
-    # (ci, tap) are one contiguous run
-    wt = weight.permute(1, 2, 3, 0).contiguous()
+    wt = _kernel_weights(weight)
+    # the kernel reads xs by TMA, in rows a multiple of 16 bytes apart from a
+    # 16-byte aligned base: rows of a width that is not a multiple of 4 are
+    # padded (the kernel bounds its reads by W, so the padding is never read)
+    if W % 4:
+        xs = F.pad(xs, (0, -W % 4))
+    elif xs.data_ptr() % 16:
+        xs = xs.clone()
     y = torch.empty((N, Cout, 2 * H, 2 * W), device=xs.device, dtype=torch.float32)
     if y.numel() == 0:
         return y

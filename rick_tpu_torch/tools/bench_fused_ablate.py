@@ -12,11 +12,14 @@ drawn with a `torch.Generator` on the card), it first holds each stage
 against its plain version (`verify`), then times each stage, each stage's
 plain version (`convt_blur_act_stage_ref`; the full stage's is the plain
 chain `convt_blur_act_ref`) and one `F.conv_transpose2d` of the same input
-and weight, with CUDA events after a warm-up.  TF32 is off, as the kernel
-computes in full f32.  Prints one line per shape, as the JAX script does,
+and weight, with CUDA events after a warm-up.  TF32 is off, so that cuDNN
+and the plain versions compute in f32, as the kernel's 3xTF32 does (no TF32
+flag reaches the kernel).  Prints one line per shape, as the JAX script does,
 then one JSON line with the times and each stage's bytes and operations.
 Every stage writes the whole output, so two stages' times differ by the work
-of the later one.
+of the later one.  Each stage's bound (`stage_bound`) counts its conv at the
+route the kernel takes, 3xTF32 on the tensor cores (`tools/roofline.py`); the
+table prints it and each stage's share of it.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from rick_tpu_torch.ops import STAGES, convt_blur_act, convt_blur_act_stage, convt_blur_act_stage_ref
+from rick_tpu_torch.tools.roofline import TF32_PASSES, bound, convt_ops
 
 SHAPES = ((512, 512, 32), (512, 256, 64), (256, 128, 128))  # (Cin, Cout, H) of the input
 BATCH = 100
@@ -68,6 +72,14 @@ def stage_work(stage: str, batch: int, cin: int, cout: int, h: int):
         nbytes += 4 * (batch * cout + batch * 4 * h * h + cout)
         flops += 4 * y
     return nbytes, flops
+
+
+def stage_bound(stage: str, batch: int, cin: int, cout: int, h: int):
+    """(least ms, what bounds it) of a stage on the card: its bytes, its
+    conv as 3xTF32 on the tensor cores, its blur and epilogue in f32."""
+    nbytes, ops = stage_work(stage, batch, cin, cout, h)
+    conv = convt_ops(batch, cin, cout, h) if stage != "load" else 0
+    return bound(nbytes, ops - conv, TF32_PASSES * conv)
 
 
 def cuda_ms(fn, iters: int = ITERS) -> float:
@@ -142,9 +154,13 @@ def ablate(batch: int = BATCH, shapes=SHAPES, iters: int = ITERS, device="cuda")
 
 
 def format_row(r: dict) -> str:
+    """One shape's stage times, cuDNN's and the plain chain's, then each
+    stage's bound and its share of it (bound / time)."""
+    bounds = {s: stage_bound(s, r["batch"], r["cin"], r["cout"], r["h"])[0] for s in STAGES}
     return (f"{r['cin']}->{r['cout']} @{r['h']}px: " + "  ".join(f"{s}={t:.3f}" for s, t in r["ms"].items())
             + f"  conv_transpose2d={r['conv_transpose2d_ms']:.3f}  plain chain={r['plain_ms']['full']:.3f}"
-            + f"  (ms, batch {r['batch']})")
+            + f"  (ms, batch {r['batch']})\n    bound ms (share): "
+            + "  ".join(f"{s}={bounds[s]:.3f} ({bounds[s] / r['ms'][s]:.0%})" for s in STAGES))
 
 
 def main() -> None:

@@ -67,12 +67,20 @@ def _convt_args(N, Cin, Cout, H, noise_batch, device):
     ]
 
 
-@pytest.mark.parametrize("N,Cin,Cout,H", [(2, 8, 8, 8), (1, 16, 8, 4), (3, 8, 16, 16), (1, 8, 256, 8),
-                                          (2, 40, 48, 5), (1, 512, 64, 4), (2, 32, 32, 33)])
+# The kernel's tiles: output edge 8 (H <= 4), 16 (H <= 8), 32 (from H = 9 on,
+# ragged at H = 17 and 33); Cin 40 leaves a partial 32-channel chunk, Cout 48
+# and 4 a partial 32-channel block; H = 4, 8, 16 at 512 -> 512 are the
+# generator's small upsample layers, one per tile
+CONVT_CARD_CASES = [(2, 8, 8, 8), (1, 16, 8, 4), (3, 8, 16, 16), (1, 8, 256, 8), (2, 40, 48, 5), (1, 512, 64, 4),
+                    (2, 32, 32, 33), (2, 16, 32, 17), (2, 40, 48, 33), (1, 24, 4, 9), (1, 40, 4, 17),
+                    (1, 512, 512, 4), (1, 512, 512, 8), (1, 512, 512, 16)]
+
+
+@pytest.mark.parametrize("N,Cin,Cout,H", CONVT_CARD_CASES)
 @pytest.mark.parametrize("noise_batch", [None, 1], ids=["noise_B", "noise_1"])
 def test_convt_blur_act_kernel_matches_plain(cuda, N, Cin, Cout, H, noise_batch):
     a = _convt_args(N, Cin, Cout, H, noise_batch, cuda)
-    # sums of 9*Cin products in another order than cuDNN: 1e-4
+    # sums of 9*Cin products (3xTF32, f32 accumulation) in another order than cuDNN: 1e-4
     assert _rel(ops.convt_blur_act(*a), ops.convt_blur_act_ref(*a)) <= 1e-4
     a[4] = None
     assert _rel(ops.convt_blur_act(*a, use_act=False), ops.convt_blur_act_ref(*a, use_act=False)) <= 1e-4
@@ -222,7 +230,8 @@ def test_small_training_iteration_matches_the_cpu_path(cuda):
             assert err <= rtol * float(step_cpu.norm()) + 1e-3 * lr * step_cpu.numel() ** 0.5, (name, k, err)
 
 
-@pytest.mark.parametrize("N,Cin,Cout,H", [(2, 8, 8, 4), (1, 16, 4, 8), (2, 32, 32, 33), (1, 512, 64, 4)])
+@pytest.mark.parametrize("N,Cin,Cout,H", [(2, 8, 8, 4), (1, 16, 4, 8), (2, 32, 32, 33), (1, 512, 64, 4),
+                                          (2, 40, 48, 17), (1, 24, 4, 9), (1, 512, 512, 8), (1, 512, 512, 16)])
 def test_convt_blur_act_stages_match_plain_and_full_is_k4(cuda, N, Cin, Cout, H):
     """K5: each stage of K4's kernel against its plain version (load exactly
     0; conv, blur, full 1e-4 of max|ref|, sums of 9*Cin products in another
