@@ -54,6 +54,16 @@ Phases, each raising on failure:
  13. fid5k_eval_s with TF32 off and on (torch's default for convolutions),
      split into generation and Inception; real-set extraction s; Inception
      img/s at batch 100; peak device memory
+ 14. the train CLI (`rick_tpu_torch.cli.train.main`, in this process) on a
+     synthetic 256px record store (10 train and 1000 test images, PNG
+     through the port's encoder) with the README recipe's flags at batch 2,
+     depth cut: --iter 10 (iterations 0-20: Fisher rounds, FID@1000 at 0,
+     10, 20, sample grids, a checkpoint at 15), then --iter 20
+     --auto_resume, which must resume at 15 and run 15-30; stats.jsonl,
+     best_fid.txt / best.pt, the PNGs, the .pt against the .state.npz
+     (g_ema's images) and a bitwise re-save of 000030.state.npz are
+     checked; K1-K4 must have launched; wall-clock, iterations, Fisher
+     rounds, evaluations and peak device memory per run
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -64,6 +74,7 @@ from __future__ import annotations
 import copy
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -73,7 +84,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from rick_tpu_torch.ckpt import load_checkpoint
+from rick_tpu_torch.ckpt import load_checkpoint, load_state, save_state, train_state_from_jax, train_state_to_jax
+from rick_tpu_torch.cli import train as train_cli
+from rick_tpu_torch.data import RecordStoreWriter, decode_png, encode_png
 from rick_tpu_torch.metrics import (
     Evaluator,
     calculate_frechet_distance,
@@ -905,6 +918,191 @@ def measure_eval(g_ema, ev, real, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the train CLI
+# ---------------------------------------------------------------------------
+
+# the README recipe's flags at full width (256px, batch 2), depth cut to fit
+# the script's time: the first run covers iterations 0-20, the second resumes
+# at the checkpoint of 15 and runs 15-30
+CLI_ITERS, CLI_RESUME_ITERS, CLI_CKPT_STEP = 10, 20, 15
+CLI_FLAGS = [
+    "--size", "256", "--batch", "2", "--n_sample_train", "10", "--num_fisher_img", "5", "--fisher_quantile", "40",
+    "--prune_quantile", "0.1", "--allow_random_fisher_noise", "--eval_in_training", "--store_samples",
+    "--store_checkpoints", "--warmup_iter", "4", "--fisher_freq", "8", "--eval_in_training_freq", "10",
+    "--samples_freq", "10", "--checkpoints_freq", "15", "--n_sample_test", "1000",
+]
+CLI_EVAL_STEPS, CLI_N_TEST = (0, 10, 20, 30), 1000
+CKPT_TOL = 1e-6  # g_ema of the .pt vs of the .state.npz, max|d| / max|ref|: the same weights
+
+
+def write_synthetic_store(root: str, size: int, n_train: int, n_test: int, *, seed: int = 0) -> None:
+    """Record stores of PNG blobs in the CLI's layout: smooth random images
+    (random (size/8)^2 pixels scaled up bilinearly, as bench.py makes them
+    with PIL), encoded by the port's PNG encoder."""
+    rng = np.random.default_rng(seed)
+    small_side = max(size // 8, 2)
+    for split, n in (("_processed_train", n_train), ("_processed_test", n_test)):
+        with RecordStoreWriter(os.path.join(root, split, "babies")) as w:
+            for start in range(0, n, 100):
+                small = rng.integers(0, 255, (min(100, n - start), 3, small_side, small_side), dtype=np.uint8)
+                big = torch.nn.functional.interpolate(torch.from_numpy(small).float(), size=(size, size),
+                                                      mode="bilinear", align_corners=False)
+                for k, img in enumerate(big.round().clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1).numpy()):
+                    w.put(start + k, encode_png(img, level=1))
+
+
+def cli_flags(root: str) -> list:
+    return ["--data_root", root, "--output_root", os.path.join(root, "out"), "--exp", "cli",
+            "--sample_noise", os.path.join(root, "noise.pt"), "--fisher_noise_dir", os.path.join(root, "_noise")]
+
+
+def grid_shape(n: int, nrow: int, size: int) -> tuple:
+    rows = (n + nrow - 1) // nrow
+    return rows * (size + 2) + 2, nrow * (size + 2) + 2, 3
+
+
+def check_cli_runs(out: str, first: dict, second: dict, *, size: int, device, resume_step: int, last_step: int,
+                   eval_steps, sample_steps, n_store: int = 25) -> dict:
+    """The checks of a first run and its --auto_resume run (in `out`, the
+    run's output_path); returns what they read."""
+    ckpt = Path(out) / "checkpoints"
+    require(first["start_iter"] == 0, f"the first run started at {first['start_iter']}")
+    require(second["start_iter"] == resume_step, f"the second run resumed at {second['start_iter']}, not {resume_step}")
+    recs = [json.loads(line) for line in (Path(out) / "stats.jsonl").read_text().splitlines()]
+    losses = [r for r in recs if "d" in r]
+    require(bool(losses), "stats.jsonl holds no losses")
+    for r in losses:
+        bad = [k for k, v in r.items() if not math.isfinite(v)]
+        require(not bad, f"stats.jsonl step {r['step']}: {bad} not finite")
+    fids = [(r["step"], r["fid"]) for r in recs if "fid" in r]
+    require({s for s, _ in fids} == set(eval_steps), f"FID logged at {sorted({s for s, _ in fids})}, not {eval_steps}")
+    require(all(math.isfinite(f) for _, f in fids), f"a FID is not finite: {fids}")
+    best = float(np.loadtxt(ckpt / "best_fid.txt").reshape(-1)[0])
+    require(best == min(f for _, f in fids), f"best_fid.txt {best} is not the lowest FID logged {fids}")
+    require((ckpt / "best.pt").exists(), "no best.pt")
+    pngs = {"real.png": grid_shape(10, 5, size)}
+    pngs.update({f"samples/{i:06d}.png": grid_shape(n_store, int(n_store**0.5), size) for i in sample_steps})
+    for name, shape in pngs.items():
+        img = decode_png((Path(out) / name).read_bytes())
+        require(img.shape == shape, f"{name}: {img.shape} != {shape}")
+
+    # the .pt and the .state.npz of one step hold the same g_ema
+    gcfg, dcfg = GeneratorConfig(size), DiscriminatorConfig(size)
+    tcfg = TrainConfig(batch=2, augment=False)
+    tree, manifest = load_state(str(ckpt / f"{resume_step:06d}.state.npz"))
+    require(manifest["step"] == resume_step, f"manifest {manifest}")
+    g_ema_npz = train_state_from_jax(gcfg, dcfg, tree, tcfg=tcfg, device=device).g_ema.eval()
+    rng = torch.Generator(device=device).manual_seed(30)
+    g_ema_pt = Generator(size, rng=rng, device=device).eval()
+    load_checkpoint(str(ckpt / f"{resume_step:06d}.pt"), device, g_ema=g_ema_pt)
+    z = torch.randn((4, gcfg.style_dim), generator=rng, device=device)
+    with torch.inference_mode():
+        ref, got = g_ema_npz([z], fast=True)[0], g_ema_pt([z], fast=True)[0]
+    _, ckpt_rel = rel_err(got, ref)
+    require(ckpt_rel <= CKPT_TOL, f"{resume_step:06d}.pt's g_ema vs the .state.npz's: {ckpt_rel:.3e} > {CKPT_TOL}")
+
+    # loading the last .state.npz and saving it again gives the same arrays
+    last = ckpt / f"{last_step:06d}.state.npz"
+    tree, manifest = load_state(str(last))
+    state = train_state_from_jax(gcfg, dcfg, tree, tcfg=tcfg, device=device)
+    with tempfile.TemporaryDirectory() as tmp:
+        again = os.path.join(tmp, last.name)
+        save_state(again, train_state_to_jax(state), step=manifest.pop("step"), extra=manifest)
+        with np.load(last) as a, np.load(again) as b:
+            require(sorted(a.files) == sorted(b.files), f"{last.name} re-saved with other keys")
+            differ = [k for k in a.files if a[k].dtype != b[k].dtype or not np.array_equal(a[k], b[k])]
+            require(not differ, f"{last.name} re-saved with other arrays: {differ[:5]}")
+            n_arrays = len(a.files)
+    return dict(fids=fids, best_fid=best, ckpt_rel=ckpt_rel, n_arrays=n_arrays, pngs=len(pngs))
+
+
+class SectionTimer:
+    """Host seconds of the CLI's sections, each between two synchronizes:
+    for the runs, the functions `cli/train.py` calls (and the Evaluator's
+    construction, which extracts the real set, and its evaluation) are
+    wrapped in place, and restored after.  The synchronizes take away the
+    overlap of one section's enqueue with the last one's device work."""
+
+    NAMES = ("run_iteration", "fisher_round", "sample_images", "Snapshot", "get_nsamples", "Evaluator")
+
+    def __init__(self):
+        self.seconds = {}
+
+    def _wrap(self, name, fn):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds.setdefault(name, []).append(time.perf_counter() - t0)
+            return out
+        return timed
+
+    def __enter__(self):
+        self._orig = {name: getattr(train_cli, name) for name in self.NAMES}
+        for name, fn in self._orig.items():
+            setattr(train_cli, name, self._wrap(name, fn))
+        self._score = Evaluator.compute_inception_score
+        Evaluator.compute_inception_score = self._wrap("evaluation", self._score)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._orig.items():
+            setattr(train_cli, name, fn)
+        Evaluator.compute_inception_score = self._score
+        return False
+
+    def take(self) -> dict:
+        """{section: (count, total s)} since the last take."""
+        out = {k: (len(v), sum(v)) for k, v in self.seconds.items()}
+        self.seconds = {}
+        return out
+
+
+def cli_phase(card: str) -> dict:
+    """Phase 14; returns the launches of the two runs."""
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        write_synthetic_store(root, SIZE, 10, CLI_N_TEST)
+        print(f"  synthetic store: 10 train + {CLI_N_TEST} test PNGs at {SIZE}px in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        flags = cli_flags(root) + CLI_FLAGS
+        runs = {}
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        with SectionTimer() as timer:
+            for label, extra in (("first", ["--iter", str(CLI_ITERS)]),
+                                 ("resumed", ["--iter", str(CLI_RESUME_ITERS), "--auto_resume"])):
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                runs[label] = train_cli.main(flags + extra)
+                torch.cuda.synchronize()
+                runs[label].update(wall_s=time.perf_counter() - t0, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                                   sections=timer.take())
+        counts = launch_counts()
+        print(f"  launches in the two CLI runs: {counts}", flush=True)
+        for label, r in runs.items():
+            print(f"  CLI {label} run: iterations {r['start_iter']}-{r['start_iter'] + r['iterations'] - 1} "
+                  f"({r['iterations']}), {r['fisher_rounds']} Fisher rounds, {r['evaluations']} evaluations of "
+                  f"{CLI_N_TEST} samples; wall {r['wall_s']:.3f} s = before the loop {r['wall_s'] - r['seconds']:.3f} "
+                  f"+ loop and final writes {r['seconds']:.3f}; peak device memory {r['peak_gib']:.2f} GiB [{card}]",
+                  flush=True)
+            in_loop = ("run_iteration", "fisher_round", "evaluation", "sample_images", "Snapshot")
+            rest = r["seconds"] - sum(r["sections"].get(k, (0, 0.0))[1] for k in in_loop)
+            print("    sections (synchronized): " + "; ".join(
+                f"{k} {n} x {tot / n:.4f} = {tot:.3f} s" for k, (n, tot) in r["sections"].items())
+                + f"; the rest of the loop and the final writes {rest:.3f} s", flush=True)
+        got = check_cli_runs(os.path.join(root, "out", "cli"), runs["first"], runs["resumed"], size=SIZE, device=DEV,
+                             resume_step=CLI_CKPT_STEP, last_step=CLI_RESUME_ITERS + 10, eval_steps=CLI_EVAL_STEPS,
+                             sample_steps=CLI_EVAL_STEPS)
+        print(f"  FID@{CLI_N_TEST} by step (seeded Inception): {got['fids']}; best_fid.txt {got['best_fid']:.6f}; "
+              f"{CLI_CKPT_STEP:06d}.pt vs .state.npz g_ema {got['ckpt_rel']:.3e} of max|ref|; "
+              f"{got['n_arrays']} arrays re-saved bitwise; {got['pngs']} PNGs decoded", flush=True)
+    require(all(counts[k] > 0 for k in SOURCES), f"a kernel did not launch in the CLI runs: {counts}")
+    return counts
+
+
 def main() -> int:
     card = card_line()
     print(card, flush=True)
@@ -985,12 +1183,17 @@ def main() -> int:
     print("[13] eval timing", flush=True)
     measure_eval(g_ema, ev, real, card)
     print(f"  peak device memory of the eval phases: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    del g_ema, ev, real
+
+    print(f"[14] train CLI: 256px batch 2, --iter {CLI_ITERS}, then --iter {CLI_RESUME_ITERS} --auto_resume", flush=True)
+    cli_counts = cli_phase(card)
     print(f"  chip_smoke total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         k = per_kernel[name]
-        by_run = {"generation": gen_counts[name], "training": train_counts[name], "eval": eval_counts[name]}
+        by_run = {"generation": gen_counts[name], "training": train_counts[name], "eval": eval_counts[name],
+                  "cli": cli_counts[name]}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces, launches=sum(by_run.values()),
             max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],

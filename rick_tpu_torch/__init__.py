@@ -10,9 +10,16 @@ Layering (bottom to top):
             at first use)
   nn     -- StyleGAN2 generator / discriminator as `nn.Module`s whose
             `state_dict()` keys are the rosinality keys
-  ckpt   -- rick_tpu params -> state dicts, rosinality `.pt` loading
-  train  -- `sample_images` (the forward-only slice of training)
-  utils  -- image grids
+  ckpt   -- rick_tpu params and train states <-> state dicts and
+            `TrainState`, rosinality `.pt` loading and writing, rick_tpu's
+            `.state.npz` resume format, the background checkpoint writer
+  train  -- the four phases with the EMA, Adam, masks, the Fisher round,
+            `sample_images`
+  metrics -- the in-loop FID evaluator, InceptionV3, the Frechet distance
+  data   -- the record store, a PNG codec of its own (no cv2, no PIL), the
+            image pipeline
+  utils  -- image grids, `stats.jsonl`, a profiler window
+  cli    -- `python -m rick_tpu_torch.cli.train`, rick_tpu's train CLI
 
 Dispatch is by device and nothing else: a CPU tensor takes each kernel's plain
 PyTorch version, a CUDA tensor launches the kernel or raises.  Importing this

@@ -1,7 +1,7 @@
-"""rick_tpu parameter pytrees and train states -> the port's state dicts and
-`TrainState` (and Inception params -> the port's `InceptionV3`), and
-rosinality `.pt` checkpoint loading.  Port of
-`rick_tpu/ckpt/convert.py`.
+"""rick_tpu parameter pytrees and train states <-> the port's state dicts and
+`TrainState` (and Inception params -> the port's `InceptionV3`), rosinality
+`.pt` checkpoint loading, and the reference's 5-key `.pt` layout with its
+torch Adam states.  Port of `rick_tpu/ckpt/convert.py`.
 
 The converters take `rick_tpu`'s params as nested dicts and lists of arrays
 (numpy, or anything `np.asarray` reads) and work in numpy only, so this
@@ -23,7 +23,7 @@ module imports neither jax nor any of `rick_tpu`.  Keys (rosinality layout):
 from __future__ import annotations
 
 import warnings
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -31,6 +31,7 @@ from torch import nn
 
 from rick_tpu_torch.nn.discriminator import Discriminator, DiscriminatorConfig
 from rick_tpu_torch.nn.generator import Generator, GeneratorConfig
+from rick_tpu_torch.train.adam import exp_avg_sq, step_counts
 from rick_tpu_torch.train.masks import d_trainable, g_trainable
 from rick_tpu_torch.train.state import TrainConfig, TrainState, init_train_state, trainable_params
 
@@ -171,6 +172,202 @@ def train_state_from_jax(
     for k in ("mean_path_length", "ada_p", "ada_stats", "r_t"):
         setattr(state, k, torch.tensor(_n(state_np[k]), device=device))
     return state
+
+
+# ---------------------------------------------------------------------------
+# the port's train state -> rick_tpu's state tree and the reference's .pt
+# ---------------------------------------------------------------------------
+
+
+def _host(x) -> np.ndarray:
+    """A host f32 numpy array of a tensor or an array."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, dtype=np.float32)
+
+
+def _styled_from_sd(sd, prefix: str):
+    return {
+        "conv": {
+            "weight": _host(sd[f"{prefix}.conv.weight"])[0],  # (1, o, i, k, k) -> (o, i, k, k)
+            "modulation": {
+                "weight": _host(sd[f"{prefix}.conv.modulation.weight"]),
+                "bias": _host(sd[f"{prefix}.conv.modulation.bias"]),
+            },
+        },
+        "noise_weight": _host(sd[f"{prefix}.noise.weight"]).reshape(()),
+        "act_bias": _host(sd[f"{prefix}.activate.bias"]),
+    }
+
+
+def _torgb_from_sd(sd, prefix: str):
+    return {
+        "conv": {
+            "weight": _host(sd[f"{prefix}.conv.weight"])[0],
+            "modulation": {
+                "weight": _host(sd[f"{prefix}.conv.modulation.weight"]),
+                "bias": _host(sd[f"{prefix}.conv.modulation.bias"]),
+            },
+        },
+        "bias": _host(sd[f"{prefix}.bias"]),
+    }
+
+
+def generator_params_from_state_dict(cfg: GeneratorConfig, sd) -> Dict[str, Any]:
+    """A rosinality G state dict -> `rick_tpu`'s G params as numpy (the
+    inverse of `generator_state_dict_from_jax`; numpy copy of `rick_tpu`'s)."""
+    return {
+        "style": [{"weight": _host(sd[f"style.{i + 1}.weight"]), "bias": _host(sd[f"style.{i + 1}.bias"])}
+                  for i in range(cfg.n_mlp)],
+        "input": _host(sd["input.input"]),
+        "conv1": _styled_from_sd(sd, "conv1"),
+        "to_rgb1": _torgb_from_sd(sd, "to_rgb1"),
+        "convs": [_styled_from_sd(sd, f"convs.{i}") for i in range(2 * (cfg.log_size - 2))],
+        "to_rgbs": [_torgb_from_sd(sd, f"to_rgbs.{i}") for i in range(cfg.log_size - 2)],
+        "noises": [_host(sd[f"noises.noise_{j}"]) for j in range(cfg.num_layers)],
+    }
+
+
+def discriminator_params_from_state_dict(cfg: DiscriminatorConfig, sd) -> Dict[str, Any]:
+    """A rosinality D state dict -> `rick_tpu`'s D params as numpy (numpy
+    copy of `rick_tpu`'s)."""
+    def conv(w, b):
+        return {"weight": _host(sd[w]), "act_bias": _host(sd[b])}
+
+    convs = [conv("convs.0.0.weight", "convs.0.1.bias")]
+    for b in range(1, cfg.log_size - 1):
+        convs.append({
+            "conv1": conv(f"convs.{b}.conv1.0.weight", f"convs.{b}.conv1.1.bias"),
+            "conv2": conv(f"convs.{b}.conv2.1.weight", f"convs.{b}.conv2.2.bias"),
+            "skip": {"weight": _host(sd[f"convs.{b}.skip.1.weight"])},
+        })
+    return {
+        "convs": convs,
+        "final_conv": conv("final_conv.0.weight", "final_conv.1.bias"),
+        "final_linear": [{"weight": _host(sd[f"final_linear.{i}.weight"]), "bias": _host(sd[f"final_linear.{i}.bias"])}
+                         for i in range(2)],
+    }
+
+
+def g_masks_to_jax(masks) -> Dict[str, Any]:
+    """{name: mask} -> `rick_tpu`'s G masks {"convs": [{weight, mod_w, mod_b}]}."""
+    n = sum(1 for k in masks if k.endswith(".conv.weight"))
+    return {"convs": [{"weight": _host(masks[f"convs.{i}.conv.weight"]),
+                       "mod_w": _host(masks[f"convs.{i}.conv.modulation.weight"]),
+                       "mod_b": _host(masks[f"convs.{i}.conv.modulation.bias"])} for i in range(n)]}
+
+
+def d_masks_to_jax(masks) -> Dict[str, Any]:
+    """{name: mask} -> `rick_tpu`'s D masks, a list over ResBlocks 1.."""
+    n = sum(1 for k in masks if k.endswith(".skip.1.weight"))
+    return {"convs": [{key: _host(masks[f"convs.{b}.{name}"]) for key, name in _D_MASK_KEYS.items()}
+                      for b in range(1, n + 1)]}
+
+
+def state_dicts(state: TrainState) -> Dict[str, Any]:
+    """The port's train state as named tensors, in `rick_tpu`'s top-level
+    layout: the four models' state dicts; per optimizer `v` (exp_avg_sq)
+    and `count` (step, an int) of each trainable param, zeros and 0 for
+    those that never stepped; the four mask sets; the scalars.  The tensors
+    are the live ones (no copy); `ckpt.async_io.snapshot` copies them."""
+    def opt(o, module, trainable):
+        params = trainable_params(module, trainable)
+        return {"v": exp_avg_sq(o, params), "count": step_counts(o, params)}
+
+    return {
+        "g": state.g.state_dict(), "d": state.d.state_dict(),
+        "g_ema": state.g_ema.state_dict(), "d_ema": state.d_ema.state_dict(),
+        "g_opt": opt(state.g_opt, state.g, g_trainable), "d_opt": opt(state.d_opt, state.d, d_trainable),
+        "g_freeze": dict(state.g_freeze), "g_prune": dict(state.g_prune),
+        "d_freeze": dict(state.d_freeze), "d_prune": dict(state.d_prune),
+        **{k: getattr(state, k) for k in ("mean_path_length", "ada_p", "ada_stats", "r_t")},
+    }
+
+
+def _first_leaves(tree):
+    """Each leaf -> a 0-d f32 array of its first element."""
+    if isinstance(tree, dict):
+        return {k: _first_leaves(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_first_leaves(v) for v in tree]
+    return np.array(tree.flat[0], np.float32)
+
+
+def _adam_tree(params_from_sd, cfg, model_sd, opt) -> Dict[str, Any]:
+    """`rick_tpu`'s Adam state {v, count} over every leaf of a model: the
+    trainable params' v and step counts, zeros for the rest (`adam_init`)."""
+    v_sd = {k: opt["v"][k] if k in opt["v"] else np.zeros(tuple(t.shape), np.float32) for k, t in model_sd.items()}
+    c_sd = {k: np.broadcast_to(np.float32(opt["count"].get(k, 0)), tuple(t.shape)) for k, t in model_sd.items()}
+    return {"v": params_from_sd(cfg, v_sd), "count": _first_leaves(params_from_sd(cfg, c_sd))}
+
+
+def train_state_to_jax(state, gcfg: GeneratorConfig = None, dcfg: DiscriminatorConfig = None) -> Dict[str, Any]:
+    """The port's `TrainState` (or its `state_dicts`, e.g. a host snapshot)
+    -> `rick_tpu`'s train state tree as numpy, every leaf
+    `rick_tpu.train.init_train_state` has; the inverse of
+    `train_state_from_jax`.  `gcfg` / `dcfg` default to the models'."""
+    if isinstance(state, TrainState):
+        gcfg, dcfg = gcfg or state.g.cfg, dcfg or state.d.cfg
+        state = state_dicts(state)
+    g = lambda sd: generator_params_from_state_dict(gcfg, sd)  # noqa: E731
+    d = lambda sd: discriminator_params_from_state_dict(dcfg, sd)  # noqa: E731
+    return {
+        "g": g(state["g"]), "d": d(state["d"]), "g_ema": g(state["g_ema"]), "d_ema": d(state["d_ema"]),
+        "g_opt": _adam_tree(generator_params_from_state_dict, gcfg, state["g"], state["g_opt"]),
+        "d_opt": _adam_tree(discriminator_params_from_state_dict, dcfg, state["d"], state["d_opt"]),
+        "g_freeze": g_masks_to_jax(state["g_freeze"]), "g_prune": g_masks_to_jax(state["g_prune"]),
+        "d_freeze": d_masks_to_jax(state["d_freeze"]), "d_prune": d_masks_to_jax(state["d_prune"]),
+        **{k: _host(state[k]) for k in ("mean_path_length", "ada_p", "ada_stats", "r_t")},
+    }
+
+
+def _adam_state_dict(opt, *, lr: float, betas) -> Dict[str, Any]:
+    """torch.optim.Adam.state_dict() layout (torch 1.12's defaults), as
+    `rick_tpu` writes it: one entry per trainable param in the optimizer's
+    order, `step` an int (0 for a param that never stepped), `exp_avg_sq`
+    its second moment and `exp_avg` zeros.  beta1 = 0, so the first moment
+    is overwritten by the next step (exp_avg = grad) and zeros resume
+    exactly."""
+    state = {}
+    for i, name in enumerate(opt["v"]):
+        v = opt["v"][name].detach().cpu()
+        state[i] = {"step": int(opt["count"][name]), "exp_avg": torch.zeros_like(v), "exp_avg_sq": v}
+    return {
+        "state": state,
+        "param_groups": [{
+            "lr": float(lr), "betas": (float(betas[0]), float(betas[1])), "eps": 1e-08, "weight_decay": 0,
+            "amsgrad": False, "maximize": False, "foreach": None, "capturable": False,
+            "params": list(range(len(state))),
+        }],
+    }
+
+
+def g_optim_state_dict(g_opt, *, lr: float, betas) -> Dict[str, Any]:
+    """The reference's g_optim state dict from `state_dicts(state)["g_opt"]`:
+    params are G's named_parameters with `convs.` (per StyledConv
+    conv.weight, conv.modulation.weight/.bias, noise.weight, activate.bias)."""
+    return _adam_state_dict(g_opt, lr=lr, betas=betas)
+
+
+def d_optim_state_dict(d_opt, *, lr: float, betas) -> Dict[str, Any]:
+    """The reference's d_optim state dict from `state_dicts(state)["d_opt"]`:
+    D's ResBlocks 1.. (conv1.0.weight, conv1.1.bias, conv2.1.weight,
+    conv2.2.bias, skip.1.weight), then final_conv and final_linear."""
+    return _adam_state_dict(d_opt, lr=lr, betas=betas)
+
+
+def torch_checkpoint(state, tcfg: TrainConfig) -> Dict[str, Any]:
+    """The reference's 5-key checkpoint {g_ema, g, d, g_optim, d_optim}
+    (`train_dynamic_update_prune.py:644-659`) of a `TrainState` or its
+    `state_dicts`, as host tensors for `torch.save`."""
+    if isinstance(state, TrainState):
+        state = state_dicts(state)
+    host = lambda sd: {k: v.detach().cpu() for k, v in sd.items()}  # noqa: E731
+    return {
+        "g_ema": host(state["g_ema"]), "g": host(state["g"]), "d": host(state["d"]),
+        "g_optim": g_optim_state_dict(state["g_opt"], lr=tcfg.g_lr, betas=(0.0, tcfg.g_beta2)),
+        "d_optim": d_optim_state_dict(state["d_opt"], lr=tcfg.d_lr, betas=(0.0, tcfg.d_beta2)),
+    }
 
 
 def merge_state_dict_lenient(module: nn.Module, loaded_sd: Dict) -> nn.Module:

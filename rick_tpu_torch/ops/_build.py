@@ -12,6 +12,9 @@ Every entry point takes its pointers and the CUDA stream as `void*`, launches
 on the stream it is given, and returns `cudaGetLastError()`; `check()` raises
 on a non-zero code.  `ptxas_report()` reads each kernel's registers and
 spills from the build's log (`-Xptxas -v`).
+
+`host_library()` builds a host C++ source of `csrc/` (`*.cpp`, no CUDA) with
+g++ into a directory of its own beside the kernels'.
 """
 
 from __future__ import annotations
@@ -181,6 +184,36 @@ def sass_counts(opcode: str) -> dict:
             elif name and re.search(rf"\*/\s+(@!?U?P\w+\s+)?{opcode}\b", line):
                 counts[name] += 1
     return dict(zip(_demangle(list(counts)), counts.values()))
+
+
+GXX_FLAGS = ["-std=c++17", "-O3", "-shared", "-fPIC"]
+
+
+def host_library(src: Path) -> ctypes.CDLL:
+    """Build a host C++ source (no CUDA) with g++ into a directory of its own
+    under `BUILD_DIR`, named by a hash of the source and flags, unless that
+    build exists, and load it.  Apart from the nvcc build, so that it also
+    runs where there is no CUDA toolkit; a failed build raises."""
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    h.update(src.read_bytes())
+    out = BUILD_DIR / f"host_{src.stem}_{h.hexdigest()[:16]}"
+    so = out / f"lib{src.stem}.so"
+    if not out.exists():
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise RuntimeError(f"no g++ found: it is needed to build {src.name}")
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        tmp.mkdir(parents=True)
+        proc = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp / so.name), str(src)], capture_output=True,
+                              text=True, timeout=300)
+        if proc.returncode != 0:
+            shutil.rmtree(tmp)
+            raise RuntimeError(f"g++ failed on {src.name} ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        if out.exists():  # another process finished the same build first
+            shutil.rmtree(tmp)
+        else:
+            os.replace(tmp, out)
+    return ctypes.CDLL(str(so))
 
 
 def check(code: int, name: str) -> None:

@@ -1,3 +1,4 @@
 from rick_tpu_torch.utils.images import save_image_grid
+from rick_tpu_torch.utils.logging import ProfilerHook, StatsLogger
 
-__all__ = ["save_image_grid"]
+__all__ = ["ProfilerHook", "StatsLogger", "save_image_grid"]

@@ -332,7 +332,8 @@ def test_import_leaves_jax_triton_and_cuda_alone():
         "import sys, torch\n"
         "import rick_tpu_torch, rick_tpu_torch.ops, rick_tpu_torch.nn, rick_tpu_torch.ckpt\n"
         "import rick_tpu_torch.train, rick_tpu_torch.utils, rick_tpu_torch.metrics\n"
-        "bad = [m for m in ('jax', 'triton', 'PIL') if m in sys.modules]\n"
+        "import rick_tpu_torch.data, rick_tpu_torch.cli, rick_tpu_torch.cli.train, rick_tpu_torch.ckpt.async_io\n"
+        "bad = [m for m in ('jax', 'triton', 'PIL', 'cv2') if m in sys.modules]\n"
         "bad += [m for m in sys.modules if m.startswith('rick_tpu.') or m == 'rick_tpu']\n"
         "assert not bad, bad\n"
         "assert not torch.cuda.is_initialized()\n"
@@ -343,8 +344,11 @@ def test_import_leaves_jax_triton_and_cuda_alone():
 
 
 # the environment variables the package may read: each picks a metric's
-# weights or arithmetic, as in rick_tpu, and none of them a kernel
+# weights or arithmetic, as in rick_tpu, and none of them a kernel; and those
+# the train CLI reads as rick_tpu's does (the cache eviction, the best.pt
+# throttle) or to refuse a multi-process launch
 METRIC_ENV = {"RICK_INCEPTION_WEIGHTS", "RICK_FID_HOST_SQRTM"}
+CLI_ENV = {"RICK_CLEAR_REAL_CACHE", "RICK_BEST_SAVE_INTERVAL_S", "WORLD_SIZE"}
 
 
 def test_package_has_no_env_gates_and_no_jax():
@@ -354,7 +358,8 @@ def test_package_has_no_env_gates_and_no_jax():
         for node in ast.walk(tree):
             if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute) and node.func.attr == "get"
                     and isinstance(node.func.value, ast.Attribute) and node.func.value.attr == "environ"
-                    and node.args and isinstance(node.args[0], ast.Constant) and node.args[0].value in METRIC_ENV):
+                    and node.args and isinstance(node.args[0], ast.Constant)
+                    and node.args[0].value in METRIC_ENV | CLI_ENV):
                 allowed.add(id(node.func.value))
         for node in ast.walk(tree):
             if isinstance(node, (ast.Import, ast.ImportFrom)):
