@@ -64,6 +64,18 @@ Phases, each raising on failure:
      (g_ema's images) and a bitwise re-save of 000030.state.npz are
      checked; K1-K4 must have launched; wall-clock, iterations, Fisher
      rounds, evaluations and peak device memory per run
+ 15. ADA at 256px, margin 224: (a) the augment on the card against the CPU
+     (p = 1 matrices made on the CPU; the images and the image gradient;
+     G = C = I, and a constant image kept); (b) a seeded state with augment
+     and the adaptive p, started at p 0.5 with 254 predictions pooled,
+     run_iteration at i = 0, 1, 4, 16: finite, p moved by exactly
+     sign * ada_step * 256 by the first D phase and by nothing else, K1-K3
+     launched; (c) the D and G phases with ADA on the card against the CPU
+     from the same state and draws (matrices included), as phase 8; (d) ms
+     of each phase at a fixed p = 0.5 beside phase 9's, of the augment
+     alone, and of D and G without and with ADA alternated on one state;
+     (e) the train CLI with --augment on phase 14's store (iterations
+     0-10, FID@100), K1-K4 launched
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -84,6 +96,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from rick_tpu_torch.augment import augment, sample_affine, sample_color
 from rick_tpu_torch.ckpt import load_checkpoint, load_state, save_state, train_state_from_jax, train_state_to_jax
 from rick_tpu_torch.cli import train as train_cli
 from rick_tpu_torch.data import RecordStoreWriter, decode_png, encode_png
@@ -630,11 +643,12 @@ def train_slice(card: str):
     return state, tcfg, counts
 
 
-def phase_runs(tcfg: TrainConfig, gcfg: GeneratorConfig, cpu_gen: torch.Generator):
+def phase_runs(tcfg: TrainConfig, gcfg: GeneratorConfig, cpu_gen: torch.Generator, ada_p=None):
     """(name, draws made on the CPU, fn(state, draws, real) -> losses) for
-    each phase, after warmup."""
-    d_draws = sample_draws(cpu_gen, gcfg, tcfg, tcfg.batch)
-    g_draws = sample_draws(cpu_gen, gcfg, tcfg, tcfg.batch)
+    each phase, after warmup; with augment, the D and G draws carry their
+    ADA matrices at p = ada_p."""
+    d_draws = sample_draws(cpu_gen, gcfg, tcfg, tcfg.batch, ada_p=ada_p, ada_batch=2 * tcfg.batch)
+    g_draws = sample_draws(cpu_gen, gcfg, tcfg, tcfg.batch, ada_p=ada_p, ada_batch=tcfg.batch)
     p_draws = sample_draws(cpu_gen, gcfg, tcfg, max(1, tcfg.batch // tcfg.path_batch_shrink), path=True)
     return [
         ("d", d_draws, lambda s, dr, real: [steps.d_phase(s, tcfg, real, dr, False)[0]["d"]]),
@@ -644,15 +658,18 @@ def phase_runs(tcfg: TrainConfig, gcfg: GeneratorConfig, cpu_gen: torch.Generato
     ]
 
 
-def train_vs_plain(state, tcfg) -> dict:
-    """From the same state and draws, each phase on the card and on the CPU;
-    then a Fisher accumulation on both.  Returns the CPU seconds."""
+def train_vs_plain(state, tcfg, phases=("d", "r1", "g", "path"), fims: bool = True) -> dict:
+    """From the same state and draws, each of `phases` on the card and on
+    the CPU; then (`fims`) a Fisher accumulation on both.  With augment, the
+    ADA state after each phase too.  Returns the CPU seconds."""
     gcfg = state.g.cfg
     base_cpu = copy.deepcopy(state).to("cpu")
     cpu_gen = torch.Generator().manual_seed(12)
     real = torch.randn((tcfg.batch, 3, SIZE, SIZE), generator=cpu_gen)
     cpu_s = {}
-    for name, draws, run in phase_runs(tcfg, gcfg, cpu_gen):
+    for name, draws, run in phase_runs(tcfg, gcfg, cpu_gen, ada_p=base_cpu.ada_p):
+        if name not in phases:
+            continue
         on_cpu = copy.deepcopy(base_cpu)
         on_card = copy.deepcopy(base_cpu).to(DEV)
         t0 = time.perf_counter()
@@ -686,10 +703,18 @@ def train_vs_plain(state, tcfg) -> dict:
             e = norm_err(v_card[k], v_cpu[k])
             worst["v"] = max(worst["v"], (e / tol(k, V_TOL), k))
             require(e <= tol(k, V_TOL), f"{name} phase: exp_avg_sq of {k} differs by {e:.3e}")
+        ada = ""
+        if tcfg.augment:
+            for k in ("ada_p", "ada_stats", "r_t"):
+                e = float((getattr(on_card, k).cpu() - getattr(on_cpu, k)).abs().max())
+                require(e <= ADA_STATE_TOL, f"{name} phase: {k} {getattr(on_card, k)} vs {getattr(on_cpu, k)}")
+            ada = f"; ada_p {float(base_cpu.ada_p)!r} -> card {float(on_card.ada_p)!r}, CPU {float(on_cpu.ada_p)!r}"
         print(f"  {name} phase: CPU {cpu_s[name]:.1f} s; loss relative error {worst['loss'][0]:.2e}; "
               f"worst error / allowed: step {worst['step'][0]:.2e} ({worst['step'][1]}), "
-              f"exp_avg_sq {worst['v'][0]:.2e} ({worst['v'][1]})", flush=True)
+              f"exp_avg_sq {worst['v'][0]:.2e} ({worst['v'][1]}){ada}", flush=True)
         del on_cpu, on_card
+    if not fims:
+        return cpu_s
 
     noises = torch.randn((2, tcfg.latent), generator=cpu_gen)
     reals = torch.randn((2, 3, SIZE, SIZE), generator=cpu_gen)
@@ -710,16 +735,24 @@ def train_vs_plain(state, tcfg) -> dict:
     return cpu_s
 
 
-def measure_training(state, tcfg, card: str) -> None:
+def measure_training(state, tcfg, card: str, fisher: bool = True) -> dict:
+    """ms per phase (R1 on the D phase's reals: the augmented ones with
+    augment) and the mix; with `fisher`, the Fisher round's seconds and the
+    run's peak memory.  Returns the ms."""
     dev = DEV
     gcfg = state.g.cfg
     gen = torch.Generator(device=dev).manual_seed(13)
     real = torch.randn((tcfg.batch, 3, SIZE, SIZE), generator=gen, device=dev)
     path_batch = max(1, tcfg.batch // tcfg.path_batch_shrink)
+
+    def draws(ada_batch):
+        return sample_draws(gen, gcfg, tcfg, tcfg.batch, ada_p=state.ada_p, ada_batch=ada_batch)
+
+    r1_real = steps.d_phase(state, tcfg, real, draws(2 * tcfg.batch), False)[1] if tcfg.augment else real
     runs = {
-        "D": lambda: steps.d_phase(state, tcfg, real, sample_draws(gen, gcfg, tcfg, tcfg.batch), False),
-        "R1": lambda: steps.r1_phase(state, tcfg, real, False),
-        "G": lambda: steps.g_phase(state, tcfg, sample_draws(gen, gcfg, tcfg, tcfg.batch), False, do_ema=True),
+        "D": lambda: steps.d_phase(state, tcfg, real, draws(2 * tcfg.batch), False),
+        "R1": lambda: steps.r1_phase(state, tcfg, r1_real, False),
+        "G": lambda: steps.g_phase(state, tcfg, draws(tcfg.batch), False, do_ema=True),
         "path": lambda: steps.path_phase(state, tcfg, sample_draws(gen, gcfg, tcfg, path_batch, path=True), False),
     }
     ms = {k: cuda_ms(fn, iters=5) for k, fn in runs.items()}
@@ -728,6 +761,9 @@ def measure_training(state, tcfg, card: str) -> None:
         print(f"  {k} phase 256px batch {tcfg.batch}: {v:.2f} ms [{card}]")
     print(f"  recipe mix per iteration (D + G + R1/{tcfg.d_reg_every} + path/{tcfg.g_reg_every}): "
           f"{mix:.2f} ms [{card}]")
+    ms["mix"] = mix
+    if not fisher:
+        return ms
     noises = torch.randn((N_FISHER, tcfg.latent), generator=gen, device=dev)
     reals = torch.randn((N_FISHER, 3, SIZE, SIZE), generator=gen, device=dev)
     fisher = lambda: fisher_round(state.g_ema, state.d_ema, noises, reals, batch=tcfg.batch,  # noqa: E731
@@ -739,6 +775,7 @@ def measure_training(state, tcfg, card: str) -> None:
     torch.cuda.synchronize()
     print(f"  Fisher round ({N_FISHER} images): {time.perf_counter() - t0:.3f} s [{card}]")
     print(f"  peak device memory of the run: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return ms
 
 
 # ---------------------------------------------------------------------------
@@ -1060,46 +1097,222 @@ class SectionTimer:
         return out
 
 
-def cli_phase(card: str) -> dict:
-    """Phase 14; returns the launches of the two runs."""
-    with tempfile.TemporaryDirectory() as root:
-        t0 = time.perf_counter()
-        write_synthetic_store(root, SIZE, 10, CLI_N_TEST)
-        print(f"  synthetic store: 10 train + {CLI_N_TEST} test PNGs at {SIZE}px in {time.perf_counter() - t0:.1f} s",
+def cli_phase(card: str, root: str) -> dict:
+    """Phase 14, on a store it writes under `root`; returns the launches of
+    the two runs."""
+    t0 = time.perf_counter()
+    write_synthetic_store(root, SIZE, 10, CLI_N_TEST)
+    print(f"  synthetic store: 10 train + {CLI_N_TEST} test PNGs at {SIZE}px in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    flags = cli_flags(root) + CLI_FLAGS
+    runs = {}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with SectionTimer() as timer:
+        for label, extra in (("first", ["--iter", str(CLI_ITERS)]),
+                             ("resumed", ["--iter", str(CLI_RESUME_ITERS), "--auto_resume"])):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            runs[label] = train_cli.main(flags + extra)
+            torch.cuda.synchronize()
+            runs[label].update(wall_s=time.perf_counter() - t0, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                               sections=timer.take())
+    counts = launch_counts()
+    print(f"  launches in the two CLI runs: {counts}", flush=True)
+    for label, r in runs.items():
+        print(f"  CLI {label} run: iterations {r['start_iter']}-{r['start_iter'] + r['iterations'] - 1} "
+              f"({r['iterations']}), {r['fisher_rounds']} Fisher rounds, {r['evaluations']} evaluations of "
+              f"{CLI_N_TEST} samples; wall {r['wall_s']:.3f} s = before the loop {r['wall_s'] - r['seconds']:.3f} "
+              f"+ loop and final writes {r['seconds']:.3f}; peak device memory {r['peak_gib']:.2f} GiB [{card}]",
               flush=True)
-        flags = cli_flags(root) + CLI_FLAGS
-        runs = {}
-        torch.cuda.synchronize()
-        reset_launch_counts()
-        with SectionTimer() as timer:
-            for label, extra in (("first", ["--iter", str(CLI_ITERS)]),
-                                 ("resumed", ["--iter", str(CLI_RESUME_ITERS), "--auto_resume"])):
-                torch.cuda.reset_peak_memory_stats()
-                t0 = time.perf_counter()
-                runs[label] = train_cli.main(flags + extra)
-                torch.cuda.synchronize()
-                runs[label].update(wall_s=time.perf_counter() - t0, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-                                   sections=timer.take())
-        counts = launch_counts()
-        print(f"  launches in the two CLI runs: {counts}", flush=True)
-        for label, r in runs.items():
-            print(f"  CLI {label} run: iterations {r['start_iter']}-{r['start_iter'] + r['iterations'] - 1} "
-                  f"({r['iterations']}), {r['fisher_rounds']} Fisher rounds, {r['evaluations']} evaluations of "
-                  f"{CLI_N_TEST} samples; wall {r['wall_s']:.3f} s = before the loop {r['wall_s'] - r['seconds']:.3f} "
-                  f"+ loop and final writes {r['seconds']:.3f}; peak device memory {r['peak_gib']:.2f} GiB [{card}]",
-                  flush=True)
-            in_loop = ("run_iteration", "fisher_round", "evaluation", "sample_images", "Snapshot")
-            rest = r["seconds"] - sum(r["sections"].get(k, (0, 0.0))[1] for k in in_loop)
-            print("    sections (synchronized): " + "; ".join(
-                f"{k} {n} x {tot / n:.4f} = {tot:.3f} s" for k, (n, tot) in r["sections"].items())
-                + f"; the rest of the loop and the final writes {rest:.3f} s", flush=True)
-        got = check_cli_runs(os.path.join(root, "out", "cli"), runs["first"], runs["resumed"], size=SIZE, device=DEV,
-                             resume_step=CLI_CKPT_STEP, last_step=CLI_RESUME_ITERS + 10, eval_steps=CLI_EVAL_STEPS,
-                             sample_steps=CLI_EVAL_STEPS)
-        print(f"  FID@{CLI_N_TEST} by step (seeded Inception): {got['fids']}; best_fid.txt {got['best_fid']:.6f}; "
-              f"{CLI_CKPT_STEP:06d}.pt vs .state.npz g_ema {got['ckpt_rel']:.3e} of max|ref|; "
-              f"{got['n_arrays']} arrays re-saved bitwise; {got['pngs']} PNGs decoded", flush=True)
+        in_loop = ("run_iteration", "fisher_round", "evaluation", "sample_images", "Snapshot")
+        rest = r["seconds"] - sum(r["sections"].get(k, (0, 0.0))[1] for k in in_loop)
+        print("    sections (synchronized): " + "; ".join(
+            f"{k} {n} x {tot / n:.4f} = {tot:.3f} s" for k, (n, tot) in r["sections"].items())
+            + f"; the rest of the loop and the final writes {rest:.3f} s", flush=True)
+    got = check_cli_runs(os.path.join(root, "out", "cli"), runs["first"], runs["resumed"], size=SIZE, device=DEV,
+                         resume_step=CLI_CKPT_STEP, last_step=CLI_RESUME_ITERS + 10, eval_steps=CLI_EVAL_STEPS,
+                         sample_steps=CLI_EVAL_STEPS)
+    print(f"  FID@{CLI_N_TEST} by step (seeded Inception): {got['fids']}; best_fid.txt {got['best_fid']:.6f}; "
+          f"{CLI_CKPT_STEP:06d}.pt vs .state.npz g_ema {got['ckpt_rel']:.3e} of max|ref|; "
+          f"{got['n_arrays']} arrays re-saved bitwise; {got['pngs']} PNGs decoded", flush=True)
     require(all(counts[k] > 0 for k in SOURCES), f"a kernel did not launch in the CLI runs: {counts}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 15: ADA in the training phases
+# ---------------------------------------------------------------------------
+
+ADA_MARGIN = 224  # the recipe's --ada_margin
+# the augment on the card vs the CPU, images and the image gradient, of
+# max|ref| (TF32 off): the same gather and coordinates, the FIR's convolutions
+# summed in another order by cuDNN, the scatter-add's atomics in any order
+ADA_TOL = 1e-5
+# ada_p, ada_stats and r_t, card vs CPU: the same signs of the real scores,
+# sums of at most 256 of +-1, one f32 step of p
+ADA_STATE_TOL = 1e-6
+ADA_START_P, ADA_START_STATS = 0.5, (0.0, 254.0)  # the D phase's 2 real scores make 256 > 255: p steps
+ADA_CLI_FLAGS = [
+    "--size", "256", "--batch", "2", "--n_sample_train", "10", "--num_fisher_img", "5", "--fisher_quantile", "40",
+    "--prune_quantile", "0.1", "--allow_random_fisher_noise", "--eval_in_training", "--store_samples",
+    "--warmup_iter", "4", "--fisher_freq", "8", "--eval_in_training_freq", "10", "--samples_freq", "10",
+    "--n_sample_test", "100", "--iter", "0", "--augment", "--exp", "ada",
+]
+
+
+def augment_vs_cpu() -> float:
+    """(a) The 256px augment at batch B, p = 1 matrices made on the CPU, on
+    the card against the CPU: the images and the gradient of sum(out * w)
+    with respect to the image; then G = C = I, on the card against the CPU,
+    and on a constant image, which must come back (the sym6 pair's gain is 1).
+    Returns the largest error relative to max|ref|."""
+    gen = torch.Generator().manual_seed(40)
+    img, w = torch.randn((B, 3, SIZE, SIZE), generator=gen), torch.randn((B, 3, SIZE, SIZE), generator=gen)
+    one = torch.ones(())
+    eye = (torch.eye(3).repeat(B, 1, 1), torch.eye(4).repeat(B, 1, 1))
+    cases = {"p = 1": (sample_affine(gen, one, B, SIZE, SIZE), sample_color(gen, one, B)), "G = C = I": eye}
+    worst = 0.0
+    for label, transform in cases.items():
+        outs = {}
+        for dev in ("cpu", DEV):
+            x = img.to(dev).requires_grad_(True)
+            out, _ = augment(x, one.to(dev), margin=ADA_MARGIN, transform=tuple(m.to(dev) for m in transform))
+            (grad,) = torch.autograd.grad((out * w.to(dev)).sum(), x)
+            outs[dev] = (out.detach().cpu(), grad.cpu())
+        for what, got, ref in zip(("images", "gradient"), outs[DEV], outs["cpu"]):
+            _, rel = rel_err(got, ref)
+            worst = max(worst, rel)
+            print(f"  augment {label}, {what}: card vs CPU {rel:.3e} of max|ref|", flush=True)
+            require(bool(torch.isfinite(got).all()) and rel <= ADA_TOL, f"augment {label} {what}: {rel:.3e}")
+    flat = torch.full((B, 3, SIZE, SIZE), 0.75, device=DEV)
+    with torch.no_grad():
+        out, _ = augment(flat, one.to(DEV), margin=ADA_MARGIN, transform=tuple(m.to(DEV) for m in eye))
+    _, rel = rel_err(out, flat)
+    print(f"  augment G = C = I of a constant image: {rel:.3e} of it", flush=True)
+    require(rel <= ADA_TOL, f"augment G = C = I does not keep a constant image: {rel:.3e}")
+    return worst
+
+
+def ada_train_slice():
+    """(b) A seeded 256px state with augment and the adaptive p, at p 0.5
+    with 254 predictions pooled; run_iteration at TRAIN_ITERS.  The first D
+    phase makes the update fire: p must move by exactly sign * ada_step *
+    256 there and nowhere else.  Returns (state, tcfg, launches)."""
+    dev = DEV
+    tcfg = TrainConfig(batch=2, augment=True, warmup_iter=1, ada_margin=ADA_MARGIN)
+    wgen = torch.Generator(device=dev).manual_seed(20)
+    g = Generator(SIZE, rng=wgen, device=dev)
+    d = Discriminator(SIZE, rng=wgen, device=dev)
+    randomize_zero_params(g, wgen)
+    randomize_zero_params(d, wgen)
+    state = init_train_state(GeneratorConfig(SIZE), DiscriminatorConfig(SIZE), tcfg, rng=wgen, device=dev, g=g, d=d)
+    state.ada_p = torch.full((), ADA_START_P, device=dev)
+    state.ada_stats = torch.tensor(ADA_START_STATS, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    ps = [ADA_START_P]
+    for i in TRAIN_ITERS:
+        real = torch.randn((tcfg.batch, 3, SIZE, SIZE), generator=gen, device=dev)
+        m = run_iteration(state, tcfg, real, i, gen=gen)
+        for k, v in m.items():
+            require(bool(torch.isfinite(v).all()), f"ADA iteration {i}: metric {k} is not finite")
+        ps.append(float(state.ada_p))
+        print(f"  i={i}: " + ", ".join(f"{k} {float(v):.6f}" for k, v in m.items())
+              + f", ada_stats {state.ada_stats.tolist()}", flush=True)
+        if i == TRAIN_ITERS[0]:
+            sign = 1.0 if float(m["r_t"]) > tcfg.ada_target else -1.0
+            want = float(torch.tensor(ADA_START_P) + sign * tcfg.ada_step * 256.0)
+            require(abs(ps[-1] - want) <= ADA_STATE_TOL and ps[-1] != ADA_START_P,
+                    f"p after the update {ps[-1]!r}, not {want!r}")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    require(ps[2:] == ps[1:-1], f"p moved without an update: {ps}")
+    for name in ("g", "d", "g_ema", "d_ema"):
+        for k, p in getattr(state, name).named_parameters():
+            require(bool(torch.isfinite(p).all()), f"ADA run: {name}.{k} is not finite")
+    check_counts(state, TRAIN_ITERS, tcfg)
+    print(f"  p by iteration {ps} (ada_step {tcfg.ada_step:.3e}); launches in the ADA run: {counts}", flush=True)
+    training = ("fused_bias_act", "fused_bias_act_bwd", "modconv_epilogue")
+    require(all(counts[k] > 0 for k in training), f"a training kernel did not launch with ADA: {counts}")
+    return state, tcfg, counts
+
+
+def measure_augment(card: str) -> dict:
+    """(d) The augment call alone at 256px, margin 224: forward at batch B
+    (the D phase's reals and fakes), forward and backward at batch 2 (the G
+    phase); CUDA events."""
+    gen = torch.Generator(device=DEV).manual_seed(22)
+    p = torch.full((), 0.5, device=DEV)
+    x4 = torch.randn((B, 3, SIZE, SIZE), generator=gen, device=DEV)
+    t4 = (sample_affine(gen, p, B, SIZE, SIZE), sample_color(gen, p, B))
+    x2 = torch.randn((2, 3, SIZE, SIZE), generator=gen, device=DEV).requires_grad_(True)
+    t2 = (sample_affine(gen, p, 2, SIZE, SIZE), sample_color(gen, p, 2))
+
+    def fwd():
+        with torch.no_grad():
+            augment(x4, p, margin=ADA_MARGIN, transform=t4)
+
+    def fwd_bwd():
+        torch.autograd.grad(augment(x2, p, margin=ADA_MARGIN, transform=t2)[0].sum(), x2)
+
+    ms = {"augment_fwd_b4": cuda_ms(fwd, iters=10), "augment_fwd_bwd_b2": cuda_ms(fwd_bwd, iters=10)}
+    print(f"  augment forward, batch {B}: {ms['augment_fwd_b4']:.3f} ms; forward and backward, batch 2: "
+          f"{ms['augment_fwd_bwd_b2']:.3f} ms [{card}]", flush=True)
+    return ms
+
+
+def ada_ab(state, card: str, rounds: int = 3) -> dict:
+    """(d) The D and G phases without and with ADA (p = 0.5) on one state,
+    alternated for `rounds` rounds of 5 calls each: the host-bound phases
+    move by several ms between blocks of one call, so each side is the
+    median of its rounds.  Returns {(phase, augment): ms}."""
+    gen = torch.Generator(device=DEV).manual_seed(23)
+    gcfg = state.g.cfg
+    real = torch.randn((2, 3, SIZE, SIZE), generator=gen, device=DEV)
+    cfgs = {aug: TrainConfig(batch=2, augment=aug, augment_p=0.5, warmup_iter=1, ada_margin=ADA_MARGIN)
+            for aug in (False, True)}
+
+    def run(phase, tcfg):
+        n = 2 * tcfg.batch if phase == "D" else tcfg.batch
+        draws = sample_draws(gen, gcfg, tcfg, tcfg.batch, ada_p=state.ada_p, ada_batch=n)
+        if phase == "D":
+            steps.d_phase(state, tcfg, real, draws, False)
+        else:
+            steps.g_phase(state, tcfg, draws, False, do_ema=True)
+
+    runs = {}
+    for _ in range(rounds):
+        for aug, tcfg in cfgs.items():
+            for phase in ("D", "G"):
+                runs.setdefault((phase, aug), []).append(cuda_ms(lambda: run(phase, tcfg), iters=5))
+    ms = {k: float(np.median(v)) for k, v in runs.items()}
+    print("  D and G without / with ADA, alternated, median of " + f"{rounds} rounds of 5: " + "; ".join(
+        f"{ph} {ms[(ph, False)]:.2f} / {ms[(ph, True)]:.2f} (rounds {[round(x, 2) for x in runs[(ph, False)]]} / "
+        f"{[round(x, 2) for x in runs[(ph, True)]]})" for ph in ("D", "G")) + f" ms [{card}]", flush=True)
+    return ms
+
+
+def ada_cli_run(card: str, root: str) -> dict:
+    """(e) The train CLI with --augment (adaptive p) on phase 14's store:
+    iterations 0-10, FID@100 at 0 and 10, sample grids.  Returns its
+    launches."""
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    r = train_cli.main(cli_flags(root) + ADA_CLI_FLAGS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    recs = [json.loads(line) for line in (Path(root) / "out" / "ada" / "stats.jsonl").read_text().splitlines()]
+    fids = [(rec["step"], rec["fid"]) for rec in recs if "fid" in rec]
+    print(f"  CLI --augment run: iterations {r['iterations']}, {r['fisher_rounds']} Fisher rounds, {r['evaluations']} "
+          f"evaluations of 100 samples, FID {fids}, logged p {[rec['ada_p'] for rec in recs if 'ada_p' in rec]}; "
+          f"wall {wall:.3f} s [{card}]; launches {counts}", flush=True)
+    require((r["iterations"], r["evaluations"]) == (11, 2), f"the CLI --augment run stopped early: {r}")
+    require(all(math.isfinite(f) for _, f in fids), f"a FID is not finite: {fids}")
+    require(all(counts[k] > 0 for k in SOURCES), f"a kernel did not launch in the CLI --augment run: {counts}")
     return counts
 
 
@@ -1163,7 +1376,7 @@ def main() -> int:
     print(f"  CPU seconds of the four phases: {sum(v for k, v in cpu_s.items() if k != 'fims'):.1f}", flush=True)
 
     print("[9] training timing", flush=True)
-    measure_training(state, tcfg, card)
+    plain_ms = measure_training(state, tcfg, card)
     del state
 
     print(f"[10] K5: K4 cut after each stage, vs plain at batch {B} (TF32 off), then the ablation at batch "
@@ -1185,15 +1398,44 @@ def main() -> int:
     print(f"  peak device memory of the eval phases: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     del g_ema, ev, real
 
-    print(f"[14] train CLI: 256px batch 2, --iter {CLI_ITERS}, then --iter {CLI_RESUME_ITERS} --auto_resume", flush=True)
-    cli_counts = cli_phase(card)
+    with tempfile.TemporaryDirectory() as root:
+        print(f"[14] train CLI: 256px batch 2, --iter {CLI_ITERS}, then --iter {CLI_RESUME_ITERS} --auto_resume",
+              flush=True)
+        cli_counts = cli_phase(card, root)
+
+        print(f"[15] ADA: 256px, margin {ADA_MARGIN}", flush=True)
+        t_ada = time.perf_counter()
+        print(f"  (a) the augment on the card vs the CPU, batch {B}, tolerance {ADA_TOL} * max|ref|", flush=True)
+        augment_err = augment_vs_cpu()
+        print(f"  (b) training slice with augment, adaptive p from {ADA_START_P}, iterations {TRAIN_ITERS}",
+              flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        state, tcfg, ada_counts = ada_train_slice()
+        print("  (c) the D and G phases with ADA vs plain (CPU), update firing", flush=True)
+        state.ada_stats = torch.tensor(ADA_START_STATS, device=DEV)
+        train_vs_plain(state, tcfg, phases=("d", "g"), fims=False)
+        print("  (d) timing at a fixed p = 0.5", flush=True)
+        fixed = TrainConfig(batch=2, augment=True, augment_p=0.5, warmup_iter=1, ada_margin=ADA_MARGIN)
+        state.ada_p = torch.full((), 0.5, device=DEV)
+        ada_ms = measure_training(state, fixed, card, fisher=False)
+        ada_ms.update(measure_augment(card))
+        ada_ab(state, card)
+        del state
+        print("  ms, 256px batch 2, without / with ADA (p = 0.5): " + "; ".join(
+            f"{k} {plain_ms[k]:.2f} / {ada_ms[k]:.2f}" for k in ("D", "R1", "G", "path", "mix"))
+            + f" [{card}]; peak device memory with ADA {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        print("  (e) train CLI with --augment: 256px batch 2, iterations 0-10, FID@100", flush=True)
+        ada_cli_counts = ada_cli_run(card, root)
+        print(f"  phase 15: {time.perf_counter() - t_ada:.1f} s; augment card vs CPU worst {augment_err:.3e}",
+              flush=True)
     print(f"  chip_smoke total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         k = per_kernel[name]
         by_run = {"generation": gen_counts[name], "training": train_counts[name], "eval": eval_counts[name],
-                  "cli": cli_counts[name]}
+                  "cli": cli_counts[name], "ada": ada_counts[name], "ada_cli": ada_cli_counts[name]}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces, launches=sum(by_run.values()),
             max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],

@@ -13,8 +13,10 @@ Layering (bottom to top):
   ckpt   -- rick_tpu params and train states <-> state dicts and
             `TrainState`, rosinality `.pt` loading and writing, rick_tpu's
             `.state.npz` resume format, the background checkpoint writer
-  train  -- the four phases with the EMA, Adam, masks, the Fisher round,
-            `sample_images`
+  augment -- ADA: the affine and colour samplers, the antialiased warp,
+            `augment`
+  train  -- the four phases with the EMA and ADA, Adam, masks, the Fisher
+            round, `sample_images`
   metrics -- the in-loop FID evaluator, InceptionV3, the Frechet distance
   data   -- the record store, a PNG codec of its own (no cv2, no PIL), the
             image pipeline

@@ -3,10 +3,10 @@ flags of `rick_tpu.cli.train` (the reference's `train_dynamic_update_prune.py`
 flags plus rick_tpu's).  Port of `rick_tpu/cli/train.py`.
 
 It runs on the card; `main(argv, device="cpu")` runs the same loop on the
-CPU.  Flags whose path is not ported yet (`--augment`, `--bf16`,
-`--n_devices` > 1, a multi-process launch) raise NotImplementedError before
-any work.  TF32 is off for cuDNN and matmuls: f32 is the precision every
-parity check of the port holds.
+CPU.  Flags whose path is not ported yet (`--bf16`, `--n_devices` > 1, a
+multi-process launch) raise NotImplementedError before any work.  TF32 is
+off for cuDNN and matmuls: f32 is the precision every parity check of the
+port holds.
 
 Artifacts are `rick_tpu`'s: `args.txt`, the script copy, the few-shot index,
 `stats.jsonl`, sample grids, `{i:06d}.state.npz` (rick_tpu's resume format,
@@ -116,7 +116,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="substitute seeded random latents for missing _noise/*.pt fixtures instead of failing "
                         "(deviates from the reference Fisher protocol)")
     p.add_argument("--ada_margin", type=int, default=224,
-                   help="static reflect-pad margin for the ADA warp (ADA is not ported yet)")
+                   help="static reflect-pad margin for the ADA warp; rotated samples deviate at the borders "
+                        "unless it covers the rotation worst case (~0.87 * size)")
     p.add_argument("--eval_bf16", action="store_true", help="bfloat16 InceptionV3 feature extraction during eval")
     p.add_argument("--eval_nhwc", action="store_true", help="run the eval InceptionV3 in channels_last")
     p.add_argument("--bf16", action="store_true",
@@ -132,8 +133,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def refuse_unported(args) -> None:
     """Raise NotImplementedError for a flag whose path is not ported yet."""
-    if args.augment:
-        raise NotImplementedError("--augment: ADA is not ported yet (ROADMAP queue 1 item 11)")
     if args.bf16:
         raise NotImplementedError("--bf16: the bf16 phases are not ported yet (ROADMAP queue 1)")
     if args.n_devices > 1:

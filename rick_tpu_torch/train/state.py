@@ -127,8 +127,6 @@ def init_train_state(
     """The full training state on `device` (the card unless the caller asks
     for the CPU).  G and D are drawn from `rng` unless given; the EMA copies
     are distinct modules."""
-    if tcfg.augment:
-        raise NotImplementedError("augment=True: ADA is not ported yet; use augment=False")
     if tcfg.bf16:
         raise NotImplementedError("bf16=True: the bf16 phases are not ported yet")
     if g is None:

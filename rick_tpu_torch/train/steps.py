@@ -13,6 +13,12 @@ its backward K2), the others `modconv_epilogue` (K3).  R1 and path length
 differentiate through those kernels twice; JAX's path phase falls back to
 its XLA epilogue there (`no_pallas_epilogue`), which is the same math.
 
+With `tcfg.augment`, the D phase runs D on the ADA augment (`augment/`) of
+its real and fake batch, augmented in one call, and adapts p after its step
+(unless `augment_p` fixes it); the G phase augments its fakes, differentiably,
+at the p the D phase left.  The R1 phase takes the D phase's augmented reals;
+the path phase has no augment, as in JAX.
+
 Warmup (`i < warmup_iter`): D steps only `final*`, G does not step (its loss
 is still computed), and the path phase does not run.  Adam's per-param step
 counts advance only for the params that step (`train/adam.py`).
@@ -26,6 +32,7 @@ from typing import Dict, List, Mapping, Optional, Union
 
 import torch
 
+from rick_tpu_torch.augment import augment, sample_affine, sample_color
 from rick_tpu_torch.nn import GeneratorConfig
 from rick_tpu_torch.train.adam import Params, adam_step
 from rick_tpu_torch.train.losses import d_logistic_loss, g_nonsaturating_loss, path_stats
@@ -42,20 +49,33 @@ class Draws:
     inject_index: Union[torch.Tensor, int]  # layers >= it take z2's style; n_latent: no mixing
     noise: List[torch.Tensor]  # per layer, (B, 1, R, R)
     noise_img: Optional[torch.Tensor] = None  # path phase: (B, 3, H, W) / sqrt(H * W)
+    ada_G: Optional[torch.Tensor] = None  # with augment: (n, 3, 3) affines of the images the phase augments
+    ada_C: Optional[torch.Tensor] = None  # and their (n, 4, 4) colour matrices
 
     def to(self, device) -> "Draws":
         move = lambda x: x.to(device) if isinstance(x, torch.Tensor) else x  # noqa: E731
         return Draws(move(self.z1), move(self.z2), move(self.inject_index), [move(x) for x in self.noise],
-                     move(self.noise_img))
+                     move(self.noise_img), move(self.ada_G), move(self.ada_C))
 
 
 def sample_draws(
-    gen: torch.Generator, gcfg: GeneratorConfig, tcfg: TrainConfig, batch: int, *, path: bool = False
+    gen: torch.Generator,
+    gcfg: GeneratorConfig,
+    tcfg: TrainConfig,
+    batch: int,
+    *,
+    path: bool = False,
+    ada_p: Optional[torch.Tensor] = None,
+    ada_batch: int = 0,
 ) -> Draws:
     """The draws of `rick_tpu`'s `_sample_latent` (style mixing with
     probability `tcfg.mixing`, inject index uniform in 1..n_latent-1),
     `_layer_noise`, and for the path phase the image-space noise, made on
-    `gen`'s device.  The inject index stays a device tensor: no host sync."""
+    `gen`'s device.  The inject index stays a device tensor: no host sync.
+    With `tcfg.augment` and `ada_batch` > 0 (2 * batch for the D phase, which
+    augments reals and fakes, batch for the G phase), the ADA matrices of
+    `ada_batch` images at probability `ada_p` follow, drawn last, so that a
+    run without augment draws what it drew before ADA was ported."""
     dev = gen.device
     z1 = torch.randn((batch, tcfg.latent), generator=gen, device=dev)
     z2 = torch.randn((batch, tcfg.latent), generator=gen, device=dev)
@@ -70,7 +90,11 @@ def sample_draws(
     if path:
         noise_img = torch.randn((batch, 3, gcfg.size, gcfg.size), generator=gen, device=dev)
         noise_img = noise_img / math.sqrt(gcfg.size * gcfg.size)
-    return Draws(z1, z2, inject, noise, noise_img)
+    ada_G = ada_C = None
+    if tcfg.augment and ada_batch:
+        ada_G = sample_affine(gen, ada_p, ada_batch, gcfg.size, gcfg.size)
+        ada_C = sample_color(gen, ada_p, ada_batch)
+    return Draws(z1, z2, inject, noise, noise_img, ada_G, ada_C)
 
 
 def ada_update(ada_p, ada_stats, r_t, real_pred, tcfg: TrainConfig):
@@ -126,15 +150,29 @@ def _fake(g, latent: torch.Tensor, draws: Draws) -> torch.Tensor:
     return g([latent], input_is_latent=True, noise=draws.noise)[0]
 
 
+def _augment(tcfg: TrainConfig, img: torch.Tensor, p: torch.Tensor, draws: Draws) -> torch.Tensor:
+    if draws.ada_G is None or draws.ada_C is None:
+        raise ValueError("augment=True: the phase's draws carry no ADA matrices (sample_draws with ada_batch)")
+    return augment(img, p, margin=tcfg.ada_margin, transform=(draws.ada_G, draws.ada_C))[0]
+
+
 def d_phase(state: TrainState, tcfg: TrainConfig, real_img: torch.Tensor, draws: Draws, warmup: bool):
-    """D step on real_img and a fake batch.  Returns (metrics, the reals the
-    R1 phase takes)."""
+    """D step on real_img and a fake batch, with augment both through one
+    ADA call at the state's p, then (adaptive p) the p update.  Returns
+    (metrics, the reals the R1 phase takes: the augmented ones)."""
     with torch.no_grad():
         fake = _fake(state.g, _latent(state.g, draws), draws)
-    fake_pred, _ = state.d(fake)
-    real_pred, _ = state.d(real_img)
+        real_aug, fake_aug = real_img, fake
+        if tcfg.augment:
+            both = _augment(tcfg, torch.cat([real_img, fake]), state.ada_p, draws)
+            real_aug, fake_aug = both[: real_img.shape[0]], both[real_img.shape[0]:]
+    fake_pred, _ = state.d(fake_aug)
+    real_pred, _ = state.d(real_aug)
     loss = d_logistic_loss(real_pred, fake_pred)
     _d_step(state, loss, warmup)
+    if tcfg.augment and tcfg.augment_p == 0:
+        state.ada_p, state.ada_stats, state.r_t = ada_update(
+            state.ada_p, state.ada_stats, state.r_t, real_pred.detach(), tcfg)
     metrics = {
         "d": loss.detach(),
         "real_score": real_pred.detach().mean(),
@@ -142,7 +180,7 @@ def d_phase(state: TrainState, tcfg: TrainConfig, real_img: torch.Tensor, draws:
         "ada_p": state.ada_p,
         "r_t": state.r_t,
     }
-    return metrics, real_img
+    return metrics, real_aug
 
 
 def r1_phase(state: TrainState, tcfg: TrainConfig, real_img: torch.Tensor, warmup: bool) -> torch.Tensor:
@@ -157,10 +195,14 @@ def r1_phase(state: TrainState, tcfg: TrainConfig, real_img: torch.Tensor, warmu
 
 
 def g_phase(state: TrainState, tcfg: TrainConfig, draws: Draws, warmup: bool, do_ema: bool) -> torch.Tensor:
-    """G step on the non-saturating loss; with `do_ema`, the iteration's EMA
-    of G and D.  Returns the loss."""
+    """G step on the non-saturating loss, with augment through the ADA warp
+    at the state's p; with `do_ema`, the iteration's EMA of G and D.
+    Returns the loss."""
     with torch.set_grad_enabled(not warmup):
-        pred, _ = state.d(_fake(state.g, _latent(state.g, draws), draws))
+        fake = _fake(state.g, _latent(state.g, draws), draws)
+        if tcfg.augment:
+            fake = _augment(tcfg, fake, state.ada_p, draws)
+        pred, _ = state.d(fake)
         loss = g_nonsaturating_loss(pred)
     _g_step(state, loss, warmup)
     if do_ema:
@@ -198,14 +240,17 @@ def run_iteration(
 ) -> Dict[str, torch.Tensor]:
     """One iteration i: the phases that fire, each with its draws from
     `draws` ("d", "g", "path") or, where a phase has none there, from
-    `sample_draws(gen, ...)` in phase order.  Returns the metrics as device
-    tensors (no host sync)."""
+    `sample_draws(gen, ...)` in phase order, each phase's ADA matrices at
+    the p it starts from.  Returns the metrics as device tensors (no host
+    sync)."""
     draws = dict(draws or {})
     gcfg = state.g.cfg
 
     def phase_draws(phase: str, batch: int) -> Draws:
         if phase not in draws:
-            draws[phase] = sample_draws(gen, gcfg, tcfg, batch, path=phase == "path")
+            ada_batch = {"d": 2 * batch, "g": batch}.get(phase, 0)
+            draws[phase] = sample_draws(gen, gcfg, tcfg, batch, path=phase == "path", ada_p=state.ada_p,
+                                        ada_batch=ada_batch)
         return draws[phase]
 
     warmup = i < tcfg.warmup_iter

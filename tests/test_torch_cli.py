@@ -1,10 +1,12 @@
 """The port's train CLI: its flags against `rick_tpu.cli.train`'s, the
 flags it refuses, a first run and its --auto_resume run on the CPU at 16px
-checked as `chip_smoke.py` phase 14 checks the 256px runs on the card, and
-the dataset-level files it shares with `rick_tpu` (the few-shot index, the
-real-images cache) against `rick_tpu`'s own."""
+checked as `chip_smoke.py` phase 14 checks the 256px runs on the card, a run
+with ADA, and the dataset-level files it shares with `rick_tpu` (the
+few-shot index, the real-images cache) against `rick_tpu`'s own."""
 
 import argparse
+import json
+import math
 import os
 
 import numpy as np
@@ -33,7 +35,7 @@ def test_flags_are_rick_tpus():
     assert _spec(train.build_parser()) == _spec(j_train.build_parser())
 
 
-@pytest.mark.parametrize("flags", [["--augment"], ["--bf16"], ["--n_devices", "2"], ["WORLD_SIZE=2"]])
+@pytest.mark.parametrize("flags", [["--bf16"], ["--n_devices", "2"], ["WORLD_SIZE=2"]])
 def test_unported_flags_raise_before_any_work(flags, tmp_path, monkeypatch):
     if flags == ["WORLD_SIZE=2"]:
         monkeypatch.setenv("WORLD_SIZE", "2")
@@ -73,6 +75,24 @@ def test_cli_runs_and_resumes_on_the_cpu(tmp_path):
     assert got["ckpt_rel"] == 0.0
     assert "tf32 : False" in (out / "args.txt").read_text()
     assert (out / "train_script.py").read_text() == open(train.__file__).read()
+
+
+def test_cli_runs_with_ada_on_the_cpu(tmp_path, capsys):
+    """--augment at 16px with margin 44 (ada.py's rule for the size) and a
+    fixed --augment_p 0.5, so that the warp moves the images: the run
+    reaches its end with finite losses and logs its p."""
+    chip_smoke.write_synthetic_store(str(tmp_path), SIZE, 10, 4)
+    flags = chip_smoke.cli_flags(str(tmp_path)) + [
+        "--size", str(SIZE), "--batch", "2", "--num_fisher_img", "2", "--allow_random_fisher_noise",
+        "--warmup_iter", "2", "--fisher_freq", "100", "--iter", "0", "--augment", "--augment_p", "0.5",
+        "--ada_margin", "44",
+    ]
+    summary = train.main(flags, device="cpu")
+    assert (summary["iterations"], summary["fisher_rounds"]) == (11, 1)
+    recs = [json.loads(line) for line in (tmp_path / "out" / "cli" / "stats.jsonl").read_text().splitlines()]
+    assert [r["ada_p"] for r in recs] == [0.5]
+    assert all(math.isfinite(v) for v in recs[0].values())
+    assert "augment: 0.5000" in capsys.readouterr().out
 
 
 class _Stop(Exception):

@@ -230,6 +230,61 @@ def test_small_training_iteration_matches_the_cpu_path(cuda):
             assert err <= rtol * float(step_cpu.norm()) + 1e-3 * lr * step_cpu.numel() ** 0.5, (name, k, err)
 
 
+def test_ada_augment_and_d_phase_match_the_cpu_path(cuda):
+    """ADA at 32px, margin 24: the augment of 4 images at p = 1 (matrices
+    made on the CPU) and the gradient of sum(out * w) with respect to the
+    image, card against CPU within 1e-5 of max|ref| (the same gather and
+    coordinates; cuDNN sums the FIR in another order, the scatter-add's
+    atomics add in any order).  Then a D phase with augment and the p update
+    firing from the same state and draws: the loss within 1e-3, p, its pool
+    and r_t within 1e-6, and D's step per tensor in norm as in the training
+    test above."""
+    import copy
+
+    from rick_tpu_torch.augment import augment, sample_affine, sample_color
+    from rick_tpu_torch.nn import DiscriminatorConfig, GeneratorConfig
+    from rick_tpu_torch.train import TrainConfig, init_train_state, sample_draws
+    from rick_tpu_torch.train import steps
+
+    gen = torch.Generator().manual_seed(3)
+    img, w = torch.randn((4, 3, 32, 32), generator=gen), torch.randn((4, 3, 32, 32), generator=gen)
+    one = torch.ones(())
+    G, C = sample_affine(gen, one, 4, 32, 32), sample_color(gen, one, 4)
+    outs = []
+    for dev in ("cpu", cuda):
+        x = img.to(dev).requires_grad_(True)
+        out, _ = augment(x, one.to(dev), margin=24, transform=(G.to(dev), C.to(dev)))
+        outs.append((out, torch.autograd.grad((out * w.to(dev)).sum(), x)[0]))
+    for ref, got in zip(*outs):
+        assert _rel(got, ref) <= 1e-5
+
+    gcfg, dcfg = GeneratorConfig(size=32), DiscriminatorConfig(size=32)
+    tcfg = TrainConfig(batch=2, augment=True, warmup_iter=0, ada_margin=24)
+    cpu = init_train_state(gcfg, dcfg, tcfg, rng=torch.Generator().manual_seed(0), device="cpu")
+    # one D phase in (p = 0), then Adam's second moments lifted as above
+    steps.d_phase(cpu, tcfg, torch.randn((2, 3, 32, 32), generator=gen),
+                  sample_draws(gen, gcfg, tcfg, 2, ada_p=cpu.ada_p, ada_batch=4), False)
+    for st in cpu.d_opt.state.values():
+        st["exp_avg_sq"] += 1e-2 * st["exp_avg_sq"].max()
+    cpu.ada_p, cpu.ada_stats = torch.tensor(0.5), torch.tensor([0.0, 254.0])
+    draws = sample_draws(gen, gcfg, tcfg, 2, ada_p=cpu.ada_p, ada_batch=4)
+    real = torch.randn((2, 3, 32, 32), generator=gen)
+    start = copy.deepcopy(cpu.d.state_dict())
+    card = copy.deepcopy(cpu).to(cuda)
+    got, _ = steps.d_phase(card, tcfg, real.to(cuda), draws.to(cuda), False)
+    want, _ = steps.d_phase(cpu, tcfg, real, draws, False)
+    assert abs(float(got["d"]) - float(want["d"])) <= 1e-3 * max(1.0, abs(float(want["d"])))
+    assert float(cpu.ada_p) != 0.5
+    for k in ("ada_p", "ada_stats", "r_t"):
+        assert float((getattr(card, k).cpu() - getattr(cpu, k)).abs().max()) <= 1e-6, k
+    a, b = card.d.state_dict(), cpu.d.state_dict()
+    for k in b:
+        step_card, step_cpu = a[k].cpu().double() - start[k].double(), b[k].double() - start[k].double()
+        err = float((step_card - step_cpu).norm())
+        rtol = 5e-2 if step_cpu.numel() == 1 else 1e-2
+        assert err <= rtol * float(step_cpu.norm()) + 1e-3 * tcfg.d_lr * step_cpu.numel() ** 0.5, k
+
+
 @pytest.mark.parametrize("N,Cin,Cout,H", [(2, 8, 8, 4), (1, 16, 4, 8), (2, 32, 32, 33), (1, 512, 64, 4),
                                           (2, 40, 48, 17), (1, 24, 4, 9), (1, 512, 512, 8), (1, 512, 512, 16)])
 def test_convt_blur_act_stages_match_plain_and_full_is_k4(cuda, N, Cin, Cout, H):

@@ -371,10 +371,13 @@ def _step_atol(v, count, beta2, lr, grad_tol):
     return atol
 
 
-def _compare(port, want_np, tol):
+def _compare(port, want_np, tol, models=("g", "g_ema", "d", "d_ema")):
+    """The params of `models` entry by entry, Adam's state, the mean path
+    length."""
     gsd = lambda tree: generator_state_dict_from_jax(JG, tree)  # noqa: E731
     dsd = lambda tree: discriminator_state_dict_from_jax(JD, tree)  # noqa: E731
-    for name, conv in (("g", gsd), ("g_ema", gsd), ("d", dsd), ("d_ema", dsd)):
+    for name in models:
+        conv = gsd if name[0] == "g" else dsd
         want = conv(want_np[name])
         opt = want_np[name[0] + "_opt"]
         v_ref, c_ref = conv(opt["v"]), conv(opt["count"])
@@ -461,10 +464,16 @@ def test_run_iteration_matches_jax(jax_train, i):
 
 
 def test_init_train_state_refuses_what_is_not_ported():
+    """bf16 is not ported; augment is, and starts at p = augment_p (0 for
+    the adaptive p), as rick_tpu's state."""
     from rick_tpu_torch.train import init_train_state
 
     rng = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="ADA"):
-        init_train_state(PG, PD, TrainConfig(augment=True), rng=rng, device="cpu")
+    for augment_p in (0.0, 0.3):
+        tcfg = TrainConfig(augment=True, augment_p=augment_p)
+        state = init_train_state(PG, PD, tcfg, rng=rng, device="cpu")
+        want = j_init_train_state(jax.random.key(0), JG, JD, JTrainConfig(augment=True, augment_p=augment_p))
+        assert float(state.ada_p) == np.float32(augment_p) == float(want["ada_p"])
+        assert not state.ada_stats.any() and float(state.r_t) == 0.0
     with pytest.raises(NotImplementedError, match="bf16"):
         init_train_state(PG, PD, TrainConfig(augment=False, bf16=True), rng=rng, device="cpu")
