@@ -76,6 +76,20 @@ Phases, each raising on failure:
      alone, and of D and G without and with ADA alternated on one state;
      (e) the train CLI with --augment on phase 14's store (iterations
      0-10, FID@100), K1-K4 launched
+ 16. scoring: (a) VGG16 fc2 of 4 images and LPIPS of 4 pairs at 256px on
+     the card against the CPU (TF32 off); (b) the recipe's Evaluator with
+     compute_pr on phase 11's g_ema and real set (5000 samples, the real
+     activations reused): one compute_inception_score(pr=True), P&R in
+     [0, 1], K4/K3/K1 launched 6/7/8 times per chunk for each of FID and
+     P&R, the device f64 distances and radii against numpy's on 500 rows,
+     VGG16 img/s, the distances' seconds; (c) `cli.intra_lpips prepare` on
+     phase 14's 10 training images and `compute` of its best.pt at the
+     protocol's defaults (1000 samples, k 10, clusters of 50, batch 8):
+     finite and > 0, K1/K3/K4 launched, the wall split into sampling,
+     assignment and pairs; 50 of the samples scored also by rick_tpu's
+     loops (VGG on both inputs of every LPIPS call): the labels equal, the
+     values within 1e-5, both timed; (d) `cli.fid`, `cli.kid` and
+     `cli.precision_recall` on two .npy sets of 1000 images
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -83,10 +97,13 @@ line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -98,16 +115,37 @@ import torch
 
 from rick_tpu_torch.augment import augment, sample_affine, sample_color
 from rick_tpu_torch.ckpt import load_checkpoint, load_state, save_state, train_state_from_jax, train_state_to_jax
+from rick_tpu_torch.cli import fid as fid_cli
+from rick_tpu_torch.cli import intra_lpips as intra_lpips_cli
+from rick_tpu_torch.cli import kid as kid_cli
+from rick_tpu_torch.cli import precision_recall as pr_cli
 from rick_tpu_torch.cli import train as train_cli
 from rick_tpu_torch.data import RecordStoreWriter, decode_png, encode_png
 from rick_tpu_torch.metrics import (
     Evaluator,
+    IntraLPIPS,
     calculate_frechet_distance,
+    default_lin_weights,
     get_activations,
     inception_init_np,
+    load_cluster_centers,
+    lpips_distance,
     randomize_bn,
+    vgg16_fc2_features,
+    vgg16_from_params,
+    vgg16_init,
 )
+from rick_tpu_torch.metrics import evaluator as evaluator_module
 from rick_tpu_torch.metrics.evaluator import _stats_from_acts
+from rick_tpu_torch.metrics.intra_lpips import reference_preprocess
+from rick_tpu_torch.metrics.precision_recall import (
+    compute_pairwise_distances,
+    distances2radii,
+    manifold_device,
+    pairwise_distances_device,
+    precision_and_recall_device,
+    radii_device,
+)
 from rick_tpu_torch.nn import Discriminator, DiscriminatorConfig, Generator, GeneratorConfig
 from rick_tpu_torch.ops import (
     STAGES,
@@ -1316,6 +1354,254 @@ def ada_cli_run(card: str, root: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 16: scoring (precision/recall, intra-LPIPS, the metric CLIs)
+# ---------------------------------------------------------------------------
+
+SCORE_B = 4  # (a): VGG16 fc2 of 4 images, LPIPS of 4 pairs, 256px
+DIST_CHECK_N = 500  # (b): rows of the device f64 distances held to numpy's
+VGG_TIMED_BATCHES = 10  # (b): batches of 100 in VGG16's img/s
+# the device f64 distances and radii against numpy's on the same features,
+# max|d| / max|ref|: two f64 GEMMs of 4096 terms summed in another order
+DIST_TOL = 1e-12
+# (c): samples scored both ways (taps once, and rick_tpu's loops, ~0.13 s a
+# sample at 256px there): cut from the CLI's 1000 to keep phase 16 near 90 s
+INTRA_REF_N = 50
+INTRA_REF_TOL = 1e-5  # the two ways' values, relative: the same taps, batched otherwise
+CLI_SET_N = 1000  # (d): images in each .npy set
+
+
+def vgg_lpips_vs_cpu() -> float:
+    """(a) VGG16 fc2 features and LPIPS (the default, seeded weights) on the
+    card against the CPU on the same seeded images; returns the worst
+    max|d| / max|ref|."""
+    params = vgg16_init()
+    gen = torch.Generator().manual_seed(30)
+    x0, x1 = (torch.rand((SCORE_B, 3, SIZE, SIZE), generator=gen) * 2 - 1 for _ in range(2))
+    lin = default_lin_weights()
+    out = {}
+    for dev in (DEV, "cpu"):
+        vgg = vgg16_from_params(params, device=dev)
+        with torch.inference_mode():
+            out[dev] = (vgg16_fc2_features(vgg, x0.to(dev)).cpu(),
+                        lpips_distance(x0.to(dev), x1.to(dev), vgg=vgg, lin_weights=lin).cpu())
+    worst = 0.0
+    for name, got, ref in zip(("fc2 features", "LPIPS"), out[DEV], out["cpu"]):
+        _, rel = rel_err(got, ref)
+        worst = max(worst, rel)
+        print(f"  {name}: max|d|/max|ref| = {rel:.3e}", flush=True)
+        require(rel <= SLICE_TOL, f"{name} card vs CPU: {rel:.3e} > {SLICE_TOL}")
+    return worst
+
+
+def pr_eval(g_ema, ev, incp, real, card: str) -> dict:
+    """(b) The recipe's Evaluator with compute_pr on phase 11's g_ema and
+    real set (its activations reused); one compute_inception_score(pr=True):
+    P&R in [0, 1], K1/K3/K4 launched for both the FID's and P&R's 5000
+    draws; the P&R side's seconds (VGG16 and the distances timed in the
+    call); the device f64 distances and radii against numpy's on 500 rows;
+    VGG16 img/s.  Returns the launches of the call."""
+    ev_pr = Evaluator(g_ema.cfg, fid_real_samples=real, inception_nsamples=EVAL_N, batch_size=REAL_BATCH,
+                      n_sample_store=25, inception_params=incp, gen_batch=GEN_BATCH, seed=0, device=DEV,
+                      compute_pr=True, real_acts=ev._real_acts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev_pr.ipr.compute_manifold_ref(ev_pr.real)
+    torch.cuda.synchronize()
+    real_s = time.perf_counter() - t0
+    reset_launch_counts()
+    with Timed(Evaluator, "vgg_features") as t_vgg, \
+            Timed(evaluator_module, "manifold_device", "precision_and_recall_device") as t_dist:
+        t0 = time.perf_counter()
+        score = ev_pr.compute_inception_score(g_ema, pr=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = launch_counts()
+    pr_s = t_vgg.seconds["vgg_features"] + sum(t_dist.seconds.values())
+    print(f"  compute_inception_score(pr=True), {EVAL_N} + {EVAL_N} draws: FID {score['fid']:.6f}, precision "
+          f"{score['precision']:.4f}, recall {score['recall']:.4f} (seeded VGG16, not a quality measure); "
+          f"{wall:.3f} s = FID side {wall - pr_s:.3f} + pr5k_s {pr_s:.3f} (generation + VGG16 fc2 "
+          f"{t_vgg.seconds['vgg_features']:.3f}, f64 manifold, radii and both metrics on the device "
+          f"{sum(t_dist.seconds.values()):.3f}); launches {counts} [{card}]", flush=True)
+    require(0.0 <= score["precision"] <= 1.0 and 0.0 <= score["recall"] <= 1.0, f"P&R out of [0, 1]: {score}")
+    require(math.isfinite(score["fid"]), f"FID is not finite: {score}")
+    per_chunk = {"convt_blur_act": 6, "modconv_epilogue": 7, "fused_bias_act": 8}
+    for name, k in per_chunk.items():
+        require(counts[name] == 2 * k * ev_pr.n_chunks,
+                f"{name} launched {counts[name]} times, not {k} x {ev_pr.n_chunks} for each of FID and P&R")
+
+    # VGG16 alone on one generated batch, and numpy's distances (the plain version) on the host
+    gen = torch.Generator(device=DEV).manual_seed(31)
+    with torch.inference_mode():
+        imgs, _ = g_ema([torch.randn((GEN_BATCH, ev_pr.latent), generator=gen, device=DEV)], rng=gen, fast=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(VGG_TIMED_BATCHES):
+            vgg16_fc2_features(ev_pr.ipr.vgg, imgs)
+        torch.cuda.synchronize()
+    vgg_s = time.perf_counter() - t0
+    ref = ev_pr.ipr.manifold_ref
+    f_np = ref.features.cpu().numpy()
+    t0 = time.perf_counter()
+    distances2radii(compute_pairwise_distances(f_np), k=ev_pr.ipr.k)
+    numpy_s = time.perf_counter() - t0
+    print(f"  VGG16 fc2 alone (224px, batch {GEN_BATCH}, {VGG_TIMED_BATCHES} batches) "
+          f"{GEN_BATCH * VGG_TIMED_BATCHES / vgg_s:.1f} img/s; numpy: one {EVAL_N}^2 matrix and its radii "
+          f"{numpy_s:.3f} s on the host; the real manifold ({EVAL_N} uint8, batch {REAL_BATCH}) {real_s:.3f} s, "
+          f"once [{card}]", flush=True)
+
+    feats = ev_pr.vgg_features(g_ema, torch.randn((DIST_CHECK_N, ev_pr.latent), generator=gen, device=DEV), rng=gen)
+    sub_r, sub_f = ref.features[:DIST_CHECK_N], feats
+    d_np = compute_pairwise_distances(sub_r.cpu().numpy(), sub_f.cpu().numpy())
+    _, d_rel = rel_err(pairwise_distances_device(sub_r, sub_f).cpu(), torch.from_numpy(d_np))
+    r_np = distances2radii(compute_pairwise_distances(sub_r.cpu().numpy()), k=ev_pr.ipr.k)
+    _, r_rel = rel_err(radii_device(pairwise_distances_device(sub_r), k=ev_pr.ipr.k).cpu(), torch.from_numpy(r_np))
+    print(f"  device f64 vs numpy on {DIST_CHECK_N} rows: distances {d_rel:.3e}, radii {r_rel:.3e} of max|ref| "
+          f"(tolerance {DIST_TOL})", flush=True)
+    require(d_rel <= DIST_TOL and r_rel <= DIST_TOL, f"device distances {d_rel:.3e} / radii {r_rel:.3e} vs numpy")
+    return counts
+
+
+class Timed:
+    """Host seconds spent in the named attributes of `owner`, each call
+    between two synchronizes; the attributes are wrapped in place and
+    restored after."""
+
+    def __init__(self, owner, *names):
+        self.owner, self.names, self.seconds = owner, names, {}
+
+    def __enter__(self):
+        self._orig = {name: getattr(self.owner, name) for name in self.names}
+        for name, fn in self._orig.items():
+            def timed(*args, _fn=fn, _name=name, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                self.seconds[_name] = self.seconds.get(_name, 0.0) + time.perf_counter() - t0
+                return out
+            setattr(self.owner, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._orig.items():
+            setattr(self.owner, name, fn)
+
+
+def run_cli(main, argv) -> tuple:
+    """`main(argv)` in this process: its printed line and its seconds."""
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    torch.cuda.synchronize()
+    return buf.getvalue().strip(), time.perf_counter() - t0
+
+
+def numbers(line: str) -> list:
+    """The decimal numbers (nan and inf too) in a CLI's printed line."""
+    return [float(x) for x in re.findall(r"-?(?:\d+\.\d+(?:e[-+]?\d+)?|nan|inf)", line)]
+
+
+def intra_lpips_rick_tpu_way(il, imgs, rng):
+    """rick_tpu's IntraLPIPS loops on the card: VGG on both inputs of every
+    LPIPS call (the center repeated to the chunk, then each chunk of
+    pairs); returns (labels, value)."""
+    def dist(a, b):
+        return lpips_distance(a, b, vgg=il.vgg, lin_weights=il.lin).cpu().numpy()
+
+    with torch.inference_mode():
+        imgs = reference_preprocess(imgs, il.size)
+        n, n_centers = imgs.shape[0], il.centers.shape[0]
+        dists = np.zeros((n, n_centers))
+        for k in range(n_centers):
+            center = il.centers[k : k + 1].expand(il.batch, -1, -1, -1)
+            for s in range(0, n, il.batch):
+                chunk = imgs[s : s + il.batch]
+                dists[s : s + chunk.shape[0], k] = dist(chunk, center[: chunk.shape[0]])
+        labels = np.argmin(dists, axis=1)
+        means = []
+        for k in range(n_centers):
+            members = np.where(labels == k)[0]
+            if len(members) < 2:
+                continue
+            rng.shuffle(members)
+            members = members[: il.cluster_size]
+            pair_a, pair_b = (torch.from_numpy(members[p]).to(imgs.device) for p in np.triu_indices(len(members), 1))
+            pairs = [dist(imgs[pair_a[s : s + il.batch]], imgs[pair_b[s : s + il.batch]])
+                     for s in range(0, len(pair_a), il.batch)]
+            means.append(float(np.concatenate(pairs).mean()))
+    return labels, float(np.mean(means))
+
+
+def intra_lpips_phase(root: str, card: str) -> dict:
+    """(c) `cli.intra_lpips prepare` on phase 14's 10 training images, then
+    `compute` of phase 14's best.pt at the protocol's defaults (1000
+    samples, k 10, clusters of 50, batch 8): finite and > 0, K1/K3/K4
+    launched; its wall split into sampling, the assignment and the rest of
+    compute (the pairs); then INTRA_REF_N of those samples scored by the port and
+    by rick_tpu's loops on the card: the labels equal, the values within
+    INTRA_REF_TOL, both timed.  Returns the launches of `compute`."""
+    store = os.path.join(root, "_processed_train", "babies")
+    centers, best = os.path.join(root, "centers"), os.path.join(root, "out", "cli", "checkpoints", "best.pt")
+    line, prep_s = run_cli(intra_lpips_cli.main, ["prepare", store, centers])
+    print(f"  {line} ({prep_s:.3f} s)", flush=True)
+    require(line.startswith("wrote 10 centers"), f"prepare: {line}")
+    reset_launch_counts()
+    with Timed(intra_lpips_cli, "sample_checkpoint") as t_cli, \
+            Timed(IntraLPIPS, "_assign_pre", "compute") as t_il:
+        line, wall = run_cli(intra_lpips_cli.main, ["compute", best, centers])
+    counts = launch_counts()
+    value = numbers(line)[0]
+    sample_s, assign_s, compute_s = t_cli.seconds["sample_checkpoint"], t_il.seconds["_assign_pre"], t_il.seconds["compute"]
+    print(f"  compute {best} (1000 samples, k 10, clusters of 50, batch 8): {line}; intra_lpips_s {wall:.3f} = "
+          f"sampling {sample_s:.3f} + assignment {assign_s:.3f} + pairs (and the preprocess) {compute_s - assign_s:.3f} "
+          f"+ the rest (VGG16 load, centers) {wall - sample_s - compute_s:.3f}; launches {counts} [{card}]", flush=True)
+    require(math.isfinite(value) and value > 0, f"intra-LPIPS {line}")
+    require(all(counts[k] > 0 for k in ("fused_bias_act", "modconv_epilogue", "convt_blur_act")),
+            f"a generation kernel did not launch in intra_lpips compute: {counts}")
+
+    samples = intra_lpips_cli.sample_checkpoint(best, SIZE, INTRA_REF_N, 0, torch.device(DEV))
+    il = IntraLPIPS(load_cluster_centers(centers, k=10, size=SIZE), device=DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = il.compute(samples, rng=np.random.default_rng(0))
+    torch.cuda.synchronize()
+    taps_s = time.perf_counter() - t0
+    labels = il.assign(samples)
+    t0 = time.perf_counter()
+    ref_labels, want = intra_lpips_rick_tpu_way(il, samples, np.random.default_rng(0))
+    ref_s = time.perf_counter() - t0
+    rel = abs(got - want) / abs(want)
+    print(f"  {INTRA_REF_N} samples: taps once {got:.6f} in {taps_s:.3f} s, rick_tpu's loops {want:.6f} in "
+          f"{ref_s:.3f} s; relative difference {rel:.3e} (tolerance {INTRA_REF_TOL}); cluster sizes "
+          f"{np.bincount(labels, minlength=10).tolist()} [{card}]", flush=True)
+    require(np.array_equal(labels, ref_labels), "the two ways' labels differ")
+    require(rel <= INTRA_REF_TOL, f"intra-LPIPS two ways: {rel:.3e} > {INTRA_REF_TOL}")
+    return counts
+
+
+def metric_clis(g_ema, real, root: str, card: str) -> None:
+    """(d) `cli.fid`, `cli.kid` and `cli.precision_recall` on two .npy sets
+    of 1000 images: g_ema's (seeded draws) and phase 11's real set."""
+    gen = torch.Generator(device=DEV).manual_seed(33)
+    with torch.inference_mode():
+        fake = torch.cat([g_ema([torch.randn((GEN_BATCH, g_ema.cfg.style_dim), generator=gen, device=DEV)],
+                                rng=gen, fast=True)[0] for _ in range(CLI_SET_N // GEN_BATCH)]).cpu().numpy()
+    a, b = os.path.join(root, "fake.npy"), os.path.join(root, "real.npy")
+    np.save(a, fake)
+    np.save(b, real[:CLI_SET_N].astype(np.float32) / 127.5 - 1.0)
+    lines = {}
+    for name, main, argv in (("fid", fid_cli.main, [b, a]), ("kid", kid_cli.main, [b, a]),
+                             ("precision_recall", pr_cli.main, [b, a])):
+        lines[name], secs = run_cli(main, argv)
+        print(f"  {name} ({CLI_SET_N} + {CLI_SET_N}, default flags): {lines[name]}; {secs:.3f} s [{card}]", flush=True)
+    nums = {k: numbers(v) for k, v in lines.items()}
+    require(all(math.isfinite(x) for v in nums.values() for x in v), f"a metric CLI printed a non-finite value: {lines}")
+    require(all(0.0 <= x <= 1.0 for x in nums["precision_recall"]), f"P&R CLI: {lines['precision_recall']}")
+
+
 def main() -> int:
     card = card_line()
     print(card, flush=True)
@@ -1396,7 +1682,6 @@ def main() -> int:
     print("[13] eval timing", flush=True)
     measure_eval(g_ema, ev, real, card)
     print(f"  peak device memory of the eval phases: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    del g_ema, ev, real
 
     with tempfile.TemporaryDirectory() as root:
         print(f"[14] train CLI: 256px batch 2, --iter {CLI_ITERS}, then --iter {CLI_RESUME_ITERS} --auto_resume",
@@ -1429,13 +1714,35 @@ def main() -> int:
         ada_cli_counts = ada_cli_run(card, root)
         print(f"  phase 15: {time.perf_counter() - t_ada:.1f} s; augment card vs CPU worst {augment_err:.3e}",
               flush=True)
+
+        print("[16] scoring: VGG16 and LPIPS, precision/recall in the Evaluator, intra-LPIPS of best.pt, the "
+              "metric CLIs", flush=True)
+        t_score = time.perf_counter()
+        print(f"  (a) VGG16 fc2 ({SCORE_B} images) and LPIPS ({SCORE_B} pairs), {SIZE}px, vs the CPU, tolerance "
+              f"{SLICE_TOL} * max|ref|", flush=True)
+        vgg_err = vgg_lpips_vs_cpu()
+        print(f"  (b) precision/recall in the Evaluator: {EVAL_N} samples, phase 11's g_ema and real set", flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        pr_counts = pr_eval(g_ema, ev, incp, real, card)
+        print(f"  peak device memory of (b): {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+        print("  (c) intra_lpips prepare and compute on phase 14's store and best.pt", flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        intra_counts = intra_lpips_phase(root, card)
+        print(f"  peak device memory of (c): {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+        print(f"  (d) fid, kid and precision_recall CLIs on two .npy sets of {CLI_SET_N}", flush=True)
+        metric_clis(g_ema, real, root, card)
+        del g_ema, ev, real
+        score_counts = {k: pr_counts[k] + intra_counts[k] for k in pr_counts}
+        print(f"  phase 16: {time.perf_counter() - t_score:.1f} s; VGG16/LPIPS card vs CPU worst {vgg_err:.3e}; "
+              f"launches in the scoring runs (b) + (c) {score_counts}", flush=True)
     print(f"  chip_smoke total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         k = per_kernel[name]
         by_run = {"generation": gen_counts[name], "training": train_counts[name], "eval": eval_counts[name],
-                  "cli": cli_counts[name], "ada": ada_counts[name], "ada_cli": ada_cli_counts[name]}
+                  "cli": cli_counts[name], "ada": ada_counts[name], "ada_cli": ada_cli_counts[name],
+                  "score": score_counts[name]}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces, launches=sum(by_run.values()),
             max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],

@@ -18,6 +18,7 @@ from rick_tpu_torch.ckpt.convert import (
     torch_checkpoint,
     train_state_from_jax,
     train_state_to_jax,
+    vgg16_state_dict_from_jax,
 )
 from rick_tpu_torch.ckpt.native import load_state, save_state
 
@@ -39,4 +40,5 @@ __all__ = [
     "torch_checkpoint",
     "train_state_from_jax",
     "train_state_to_jax",
+    "vgg16_state_dict_from_jax",
 ]

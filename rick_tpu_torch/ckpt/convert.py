@@ -97,6 +97,22 @@ def inception_state_dict_from_jax(params) -> Dict[str, np.ndarray]:
     return {k: _n(v) for k, v in params.items()}
 
 
+def vgg16_state_dict_from_jax(params) -> Dict[str, np.ndarray]:
+    """`rick_tpu`'s VGG16 params -> f32 numpy arrays under the same keys,
+    torchvision's, which `metrics.vgg16_from_params` takes; the keys and
+    shapes must be config D's up to fc2."""
+    from rick_tpu_torch.metrics.vgg import PARAM_SHAPES  # imported here: the ckpt package does not load metrics
+
+    sd = {k: _n(v) for k, v in params.items()}
+    if set(sd) != set(PARAM_SHAPES):
+        raise KeyError(f"VGG16 params: missing {sorted(set(PARAM_SHAPES) - set(sd))}, "
+                       f"unexpected {sorted(set(sd) - set(PARAM_SHAPES))}")
+    bad = {k: v.shape for k, v in sd.items() if v.shape != PARAM_SHAPES[k]}
+    if bad:
+        raise ValueError(f"VGG16 params of the wrong shape: {bad}")
+    return sd
+
+
 def g_masks_from_jax(masks) -> Dict[str, np.ndarray]:
     """`rick_tpu` G masks {"convs": [{weight, mod_w, mod_b}]} -> {name: array}."""
     out = {}

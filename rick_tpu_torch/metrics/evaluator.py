@@ -6,15 +6,18 @@ through the EMA generator in chunks of `gen_batch`, each chunk straight into
 InceptionV3; the pool3 activations stay on the device, and their mean and
 covariance (two-pass, f32, ddof 1) give the FID against the real set's,
 which are computed once at construction.  The generated images never leave
-the device.  KID uses the first 2000 activations of each side.
+the device.  KID uses the first 2000 activations of each side.  With
+`compute_pr`, precision and recall take VGG16 fc2 features of as many fresh
+draws, against the real set's manifold, built once; `compute_intra_lpips`
+scores generated samples against a cluster-center directory.
 
 Randomness comes from one `torch.Generator` on the evaluator's device, seeded
 with `seed`.  `fast_gen=None` takes the fused upsample kernel (K4) wherever
 g_ema is on a CUDA device and the plain chain on the CPU; an explicit bool is
 the caller's choice.
 
-Not here: the data-parallel mesh (`mesh=`), precision/recall and intra-LPIPS
-(they raise NotImplementedError, see ROADMAP).
+Not here: the data-parallel mesh (`mesh=`) and a generation dtype other
+than float32 (both raise NotImplementedError, see ROADMAP).
 """
 
 from __future__ import annotations
@@ -32,6 +35,9 @@ from rick_tpu_torch.metrics.fid import (
     get_activations,
 )
 from rick_tpu_torch.metrics.inception import default_inception_params, inception_from_params
+from rick_tpu_torch.metrics.intra_lpips import IntraLPIPS, load_cluster_centers
+from rick_tpu_torch.metrics.precision_recall import IPR, manifold_device, precision_and_recall_device
+from rick_tpu_torch.metrics.vgg import vgg16_fc2_features
 
 KID_SUBSETS = 100
 
@@ -94,8 +100,6 @@ class Evaluator:
         defaults)."""
         if mesh is not None:
             raise NotImplementedError("Evaluator(mesh=...): the sharded eval is ROADMAP queue 1 item 13")
-        if compute_pr:
-            raise NotImplementedError("precision/recall (VGG16) is ROADMAP queue 1 item 12")
         if gen_dtype != torch.float32:
             raise NotImplementedError(f"gen_dtype {gen_dtype}: generation runs in float32 only (K4 is f32)")
         self.gcfg = gcfg
@@ -121,6 +125,8 @@ class Evaluator:
         )
         self._pool3_kw = dict(stop_at=inception_stop_at, resize_to=inception_resize_to)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        # VGG16 (default_vgg16_params) for precision/recall; the real manifold is built at the first call
+        self.ipr = IPR(batch_size, k=3, num_samples=inception_nsamples, device=self.device) if compute_pr else None
 
         if real_acts is not None:
             self._real_acts = np.asarray(real_acts, np.float64)
@@ -146,6 +152,18 @@ class Evaluator:
             for zc in z.split(self.gen_batch):
                 imgs, _ = g_ema([zc], rng=rng, fast=self._fast)
                 out.append(self.inception.pool3(imgs, **self._pool3_kw).float())
+        return torch.cat(out)
+
+    def vgg_features(self, g_ema, z: torch.Tensor, *, rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        """VGG16 fc2 features (n, 4096), f64 on the device, of g_ema's images
+        of the latents `z`, in chunks of `gen_batch`; noise as in
+        `activations`."""
+        self._check(g_ema)
+        out = []
+        with torch.inference_mode():
+            for zc in z.split(self.gen_batch):
+                imgs, _ = g_ema([zc], rng=rng, fast=self._fast)
+                out.append(vgg16_fc2_features(self.ipr.vgg, imgs).double())
         return torch.cat(out)
 
     def _fake_acts(self, g_ema) -> torch.Tensor:
@@ -174,24 +192,27 @@ class Evaluator:
             )
         return frechet_distance_device(self._real_mu, self._real_cov, mu, cov)
 
-    def generate(self, g_ema, n: Optional[int] = None) -> torch.Tensor:
-        """n generated images (default `inception_nsamples`), f32 on the
-        host, in chunks of `n_sample_store` (sample grids, interop)."""
+    def _generate(self, g_ema, n: int) -> torch.Tensor:
+        """n generated images on the device, in chunks of `n_sample_store`."""
         self._check(g_ema)
-        n = n or self.inception_nsamples
         outs, got = [], 0
         with torch.inference_mode():
             while got < n:
                 z = torch.randn((self.n_sample_store, self.latent), generator=self._gen, device=self.device)
                 imgs, _ = g_ema([z], rng=self._gen, fast=self._fast)
-                outs.append(imgs.float().cpu())
+                outs.append(imgs.float())
                 got += imgs.shape[0]
         return torch.cat(outs)[:n]
 
+    def generate(self, g_ema, n: Optional[int] = None) -> torch.Tensor:
+        """n generated images (default `inception_nsamples`), f32 on the
+        host, in chunks of `n_sample_store` (sample grids, interop)."""
+        return self._generate(g_ema, n or self.inception_nsamples).cpu()
+
     def compute_inception_score(self, g_ema, *, fid: bool = True, kid: bool = False,
                                 pr: bool = False) -> Dict[str, float]:
-        if pr:
-            raise NotImplementedError("precision/recall (VGG16) is ROADMAP queue 1 item 12")
+        if pr and self.ipr is None:
+            raise ValueError("pr=True needs an Evaluator built with compute_pr=True")
         score: Dict[str, float] = {}
         acts = self._fake_acts(g_ema)
         mu, cov = _stats_from_acts(acts)
@@ -207,7 +228,28 @@ class Evaluator:
             score["kid"] = float(kid_subsets(real, fake, draw(real.shape[0]), draw(fake.shape[0])).mean())
         if fid:
             score["fid"] = self.fid(mu, cov)
+        if pr:
+            if self.ipr.manifold_ref is None:  # the real set's, the same at every call
+                self.ipr.compute_manifold_ref(self.real)
+            feats = torch.cat([
+                self.vgg_features(g_ema, torch.randn((self.gen_batch, self.latent), generator=self._gen,
+                                                     device=self.device), rng=self._gen)
+                for _ in range(self.n_chunks)
+            ])
+            score["precision"], score["recall"] = precision_and_recall_device(
+                self.ipr.manifold_ref, manifold_device(feats, self.ipr.k))
         return score
 
-    def compute_intra_lpips(self, g_ema, cluster_center_path: str, **kw) -> float:
-        raise NotImplementedError("intra-LPIPS (LPIPS-VGG) is ROADMAP queue 1 item 12")
+    def compute_intra_lpips(self, g_ema, cluster_center_path: str, *, n_samples: int = 1000,
+                            cluster_size: int = 50, k: int = 10, size: int = 256, seed: int = 0) -> float:
+        """Intra-cluster LPIPS diversity (`gan_training/eval.py:83-220`):
+        `n_samples` fresh images, each assigned to the nearest of the `k`
+        centers under `cluster_center_path` (`c{k}/center.png`, written by
+        `intra_lpips.prepare_cluster_centers`) by LPIPS-VGG, then the mean
+        pairwise LPIPS within each cluster over at most `cluster_size`
+        members, the members shuffled by `np.random.default_rng(seed)`.  The
+        reference's PNG round trip and resize (to `size`) are applied to the
+        tensors (`intra_lpips.reference_preprocess`)."""
+        centers = load_cluster_centers(cluster_center_path, k=k, size=size)
+        il = IntraLPIPS(centers, cluster_size=cluster_size, size=size, device=self.device)
+        return il.compute(self._generate(g_ema, n_samples), rng=np.random.default_rng(seed))

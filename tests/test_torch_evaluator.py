@@ -160,11 +160,9 @@ def test_generate_returns_host_images_in_store_chunks(setup):
 
 
 def test_unported_options_raise(setup):
+    """The sharded evaluation and a non-f32 generation still raise; P&R and
+    intra-LPIPS are ported (tests/test_torch_scores.py)."""
     s = setup
-    for over in (dict(mesh=object()), dict(compute_pr=True), dict(gen_dtype=torch.bfloat16)):
+    for over in (dict(mesh=object()), dict(gen_dtype=torch.bfloat16)):
         with pytest.raises(NotImplementedError):
             Evaluator(s["gcfg"], fid_real_samples=s["real"], **_kw(s, **over))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        s["ev"].compute_inception_score(s["g"], pr=True)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        s["ev"].compute_intra_lpips(s["g"], "centers")

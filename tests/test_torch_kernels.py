@@ -333,6 +333,8 @@ def test_import_leaves_jax_triton_and_cuda_alone():
         "import rick_tpu_torch, rick_tpu_torch.ops, rick_tpu_torch.nn, rick_tpu_torch.ckpt\n"
         "import rick_tpu_torch.train, rick_tpu_torch.utils, rick_tpu_torch.metrics\n"
         "import rick_tpu_torch.data, rick_tpu_torch.cli, rick_tpu_torch.cli.train, rick_tpu_torch.ckpt.async_io\n"
+        "import rick_tpu_torch.cli.fid, rick_tpu_torch.cli.kid, rick_tpu_torch.cli.precision_recall\n"
+        "import rick_tpu_torch.cli.intra_lpips\n"
         "bad = [m for m in ('jax', 'triton', 'PIL', 'cv2') if m in sys.modules]\n"
         "bad += [m for m in sys.modules if m.startswith('rick_tpu.') or m == 'rick_tpu']\n"
         "assert not bad, bad\n"
@@ -347,7 +349,7 @@ def test_import_leaves_jax_triton_and_cuda_alone():
 # weights or arithmetic, as in rick_tpu, and none of them a kernel; and those
 # the train CLI reads as rick_tpu's does (the cache eviction, the best.pt
 # throttle) or to refuse a multi-process launch
-METRIC_ENV = {"RICK_INCEPTION_WEIGHTS", "RICK_FID_HOST_SQRTM"}
+METRIC_ENV = {"RICK_INCEPTION_WEIGHTS", "RICK_VGG16_WEIGHTS", "RICK_LPIPS_WEIGHTS", "RICK_FID_HOST_SQRTM"}
 CLI_ENV = {"RICK_CLEAR_REAL_CACHE", "RICK_BEST_SAVE_INTERVAL_S", "WORLD_SIZE"}
 
 
