@@ -90,6 +90,17 @@ Phases, each raising on failure:
      loops (VGG on both inputs of every LPIPS call): the labels equal, the
      values within 1e-5, both timed; (d) `cli.fid`, `cli.kid` and
      `cli.precision_recall` on two .npy sets of 1000 images
+ 17. bf16 (rick_tpu's `--bf16` and `Evaluator(gen_dtype=bf16)`: bf16 in G's
+     conv1 and D's from-RGB conv only): (a) K1-bf16 at (2,128,256,256) and
+     K3-bf16 at (2,512,4,4), noise batch 2 and 1, against their plain
+     versions and timed (K3-bf16 also at (4,128,256,256)), and their first
+     grads against plain autograd; (b) a seeded bf16 state, run_iteration
+     at i = 0, 1, 4, 16: finite, both bf16 instantiations and K1-K3
+     launched; (c) the bf16 D and G phases on the card against the CPU, as
+     phase 8, per tensor in norm within 1e-1; (d) D and G in f32 and bf16
+     alternated on one state; (e) `Evaluator(gen_dtype=bf16)` on one chunk
+     of 100 against phase 11's f32 one (launches, time, FID@100); (f) the
+     train CLI with --bf16 on phase 14's store (iterations 0-10, FID@100)
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -150,6 +161,7 @@ from rick_tpu_torch.nn import Discriminator, DiscriminatorConfig, Generator, Gen
 from rick_tpu_torch.ops import (
     STAGES,
     _build,
+    bf16_launch_counts,
     convt_blur_act,
     convt_blur_act_ref,
     convt_blur_act_stage,
@@ -167,7 +179,13 @@ from rick_tpu_torch.tools import bench_fused_ablate
 # operations at 67 TFLOP/s f32, and K4's and K5's conv at the route the kernel
 # takes, 3xTF32 on the tensor cores (3 x its operations at 495 TFLOP/s); a
 # kernel's bound is the largest of the three
-from rick_tpu_torch.tools.roofline import TF32_PASSES, bound, convt_ops
+from rick_tpu_torch.tools.roofline import (
+    TF32_PASSES,
+    bound,
+    convt_ops,
+    fused_bias_act_bytes,
+    modconv_epilogue_bytes,
+)
 from rick_tpu_torch.train import (
     TrainConfig,
     accumulate_fims,
@@ -194,7 +212,8 @@ N_FISHER = 5
 SLICE_TOL = 1e-3  # generation slice vs plain: max|d| <= SLICE_TOL * max|ref|, TF32 off
 # per-kernel: max|d| <= tol * max|ref|.  K1, K2 and K3 are elementwise (at most
 # an FMA contraction apart); K4 sums 9*Cin products in another order than cuDNN.
-KERNEL_TOL = {"fused_bias_act": 1e-6, "fused_bias_act_bwd": 1e-6, "modconv_epilogue": 1e-6, "convt_blur_act": 1e-4}
+KERNEL_TOL = {"fused_bias_act": 1e-6, "fused_bias_act_bwd": 1e-6, "modconv_epilogue": 1e-6, "convt_blur_act": 1e-4,
+              "fused_bias_act_bf16": 1e-6, "modconv_epilogue_bf16": 1e-6}
 # autograd through the kernels vs plain autograd, relative to max|ref|: K2
 # applies the slope before the gain where autograd of the plain version
 # applies it after (an ulp), and the bias, demod, noise and noise-weight
@@ -259,9 +278,9 @@ def by_tensor(tensors: dict) -> dict:
 
 
 def tol(name: str, tensor_tol: float) -> float:
-    """The tolerance of an entry of `by_tensor`: SCALAR_TOL for the vector of
-    one-element params."""
-    return SCALAR_TOL if name == ONE_ELEMENT else tensor_tol
+    """The tolerance of an entry of `by_tensor`: SCALAR_TOL (or the tensors'
+    own, where that is larger) for the vector of one-element params."""
+    return max(SCALAR_TOL, tensor_tol) if name == ONE_ELEMENT else tensor_tol
 
 
 def card_line() -> str:
@@ -696,7 +715,8 @@ def phase_runs(tcfg: TrainConfig, gcfg: GeneratorConfig, cpu_gen: torch.Generato
     ]
 
 
-def train_vs_plain(state, tcfg, phases=("d", "r1", "g", "path"), fims: bool = True) -> dict:
+def train_vs_plain(state, tcfg, phases=("d", "r1", "g", "path"), fims: bool = True, step_tol: float = STEP_TOL,
+                   v_tol: float = V_TOL) -> dict:
     """From the same state and draws, each of `phases` on the card and on
     the CPU; then (`fims`) a Fisher accumulation on both.  With augment, the
     ADA state after each phase too.  Returns the CPU seconds."""
@@ -729,7 +749,7 @@ def train_vs_plain(state, tcfg, phases=("d", "r1", "g", "path"), fims: bool = Tr
             for k in start:
                 step_cpu, step_card = cur[k] - start[k], card[k] - start[k]
                 diff, ref = float((step_card - step_cpu).norm()), float(step_cpu.norm())
-                allowed = tol(k, STEP_TOL) * ref + STEP_ATOL * lr * math.sqrt(step_cpu.numel())
+                allowed = tol(k, step_tol) * ref + STEP_ATOL * lr * math.sqrt(step_cpu.numel())
                 worst["step"] = max(worst["step"], (diff / allowed, f"{model}.{k}"))
                 require(diff <= allowed, f"{name} phase: the step of {model}.{k} differs by {diff:.3e} "
                                          f"(|step| {ref:.3e}; allowed {allowed:.3e})")
@@ -739,8 +759,8 @@ def train_vs_plain(state, tcfg, phases=("d", "r1", "g", "path"), fims: bool = Tr
                                       trainable_params(getattr(on_card, trained[0]), trained[1])))
         for k in v_cpu:
             e = norm_err(v_card[k], v_cpu[k])
-            worst["v"] = max(worst["v"], (e / tol(k, V_TOL), k))
-            require(e <= tol(k, V_TOL), f"{name} phase: exp_avg_sq of {k} differs by {e:.3e}")
+            worst["v"] = max(worst["v"], (e / tol(k, v_tol), k))
+            require(e <= tol(k, v_tol), f"{name} phase: exp_avg_sq of {k} differs by {e:.3e}")
         ada = ""
         if tcfg.augment:
             for k in ("ada_p", "ada_stats", "r_t"):
@@ -1602,6 +1622,234 @@ def metric_clis(g_ema, real, root: str, card: str) -> None:
     require(all(0.0 <= x <= 1.0 for x in nums["precision_recall"]), f"P&R CLI: {lines['precision_recall']}")
 
 
+# ---------------------------------------------------------------------------
+# phase 17: bf16 (train --bf16, Evaluator(gen_dtype=bf16))
+# ---------------------------------------------------------------------------
+
+BF16_SOURCES = {
+    "fused_bias_act_bf16": ("rick_tpu_torch/csrc/fused_bias_act.cu", "rick_tpu/ops/pallas_kernels.py:81"),
+    "modconv_epilogue_bf16": ("rick_tpu_torch/csrc/modconv_epilogue.cu", "rick_tpu/ops/pallas_kernels.py:176"),
+}
+BF16_STEP = 2.0**-8  # a bf16 ulp at 1, relative
+BF16_KERNEL_TOL = KERNEL_TOL["fused_bias_act_bf16"]
+# autograd through the bf16 instantiations vs plain autograd, first grads, of
+# max|ref|.  K2 applies the slope before the gain, plain autograd after it:
+# an f32 ulp, which the rounding to bf16 may carry to one bf16 step.  So
+# K1's gx and K3's d_out one bf16 step, the f32 sums (gb, K3's bias) 1e-5,
+# K3's bf16 sums over a layer (demod, noise) four steps, and the noise
+# weight's, one sum that cancels to a small part of its terms, SCALAR_TOL
+BF16_GRAD_TOL = {"fused_bias_act_bf16": (BF16_STEP, 1e-5),
+                 "modconv_epilogue_bf16": (BF16_STEP, 4 * BF16_STEP, 4 * BF16_STEP, SCALAR_TOL, 1e-5)}
+# the bf16 D and G phases, card vs CPU, per tensor in norm (step and Adam's
+# v): tests/test_torch_bf16.py's rule against rick_tpu.  Fakes that differ
+# by a rounding take another bf16 rounding in D's from-RGB layer, which moves
+# D's bf16 gradients by a few percent (in f32: 1e-5)
+BF16_TRAIN_TOL = 1e-1
+BF16_EVAL_TOL = 5e-2  # bf16 vs f32 generation, activations of max|ref|: a bf16 conv1 (~2^-8) through G and Inception
+BF16_CLI_FLAGS = ADA_CLI_FLAGS[:-3] + ["--bf16", "--exp", "bf16"]  # phase 15 (e)'s run, --bf16 for --augment
+
+
+def bf16_kernel_cases(gen: torch.Generator):
+    """K1-bf16 at D's from-RGB activation of the 256px batch-2 bf16 phases;
+    K3-bf16 at G's conv1 (noise batch 2, fresh, and 1, the buffers), and at
+    (4,128,256,256) for its time on a streaming shape."""
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=DEV) * scale
+
+    x, b = randn(2, 128, SIZE, SIZE).bfloat16(), randn(128, scale=0.1)
+    main = [case("fused_bias_act_bf16", str(tuple(x.shape)), lambda: fused_bias_act(x, b),
+                 lambda: fused_bias_act_ref(x, b), fused_bias_act_bytes(x.numel(), 128, 2), 3 * x.numel())]
+    streaming = []
+    for shape, nbs, cases in (((2, 512, 4, 4), (2, 1), main), ((4, 128, SIZE, SIZE), (4,), streaming)):
+        bsz, c, r, _ = shape
+        out, bias = randn(*shape).bfloat16(), randn(c, scale=0.1)
+        demod = (torch.rand((bsz, c), generator=gen, device=DEV) + 0.5).bfloat16()
+        nw = torch.full((1,), 0.3, device=DEV).bfloat16()
+        for nb in nbs:
+            a = (out, demod, randn(nb, 1, r, r).bfloat16(), nw, bias)
+            cases.append(case("modconv_epilogue_bf16", f"{shape} noise batch {nb}", lambda a=a: modconv_epilogue(*a),
+                              lambda a=a: modconv_epilogue_ref(*a),
+                              modconv_epilogue_bytes(bsz, c, r * r, nb, 2), 6 * out.numel()))
+    return main, streaming
+
+
+def bf16_autograd() -> dict:
+    """First grads through the bf16 instantiations against plain autograd of
+    their plain versions, at their main-path shapes: dtypes, then values
+    within BF16_GRAD_TOL.  Returns the largest abs error per kernel."""
+    gen = torch.Generator(device=DEV).manual_seed(90)
+    runs = {"fused_bias_act_bf16": [], "modconv_epilogue_bf16": []}
+    x = torch.randn((2, 128, SIZE, SIZE), generator=gen, device=DEV).bfloat16()
+    runs["fused_bias_act_bf16"].append((fused_bias_act, fused_bias_act_ref,
+                                        (x, torch.randn(128, generator=gen, device=DEV) * 0.1)))
+    for nb in (2, 1):
+        a = (torch.randn((2, 512, 4, 4), generator=gen, device=DEV).bfloat16(),
+             (torch.rand((2, 512), generator=gen, device=DEV) + 0.5).bfloat16(),
+             torch.randn((nb, 1, 4, 4), generator=gen, device=DEV).bfloat16(),
+             torch.full((1,), 0.3, device=DEV).bfloat16(), torch.randn(512, generator=gen, device=DEV) * 0.1)
+        runs["modconv_epilogue_bf16"].append((modconv_epilogue, modconv_epilogue_ref, a))
+    errs = {}
+    for name, items in runs.items():
+        errs[name] = 0.0
+        for f, f_ref, args in items:
+            grads = []
+            for fn in (f, f_ref):
+                leaves = [a.detach().requires_grad_(True) for a in args]
+                y = fn(*leaves)
+                w = torch.randn(y.shape, generator=torch.Generator(device=DEV).manual_seed(91), device=DEV)
+                grads.append(torch.autograd.grad(y, leaves, w))
+            for i, (got, want, a, t_) in enumerate(zip(*grads, args, BF16_GRAD_TOL[name])):
+                require(got.dtype == want.dtype == a.dtype, f"{name} grad {i}: dtype {got.dtype}, {want.dtype}")
+                abs_err, rel = rel_err(got, want)
+                require(bool(torch.isfinite(got).all()) and rel <= t_, f"{name} grad {i}: rel err {rel:.3e} > {t_}")
+                errs[name] = max(errs[name], abs_err)
+    torch.cuda.synchronize()
+    return errs
+
+
+def bf16_counts() -> dict:
+    return {**launch_counts(), **bf16_launch_counts()}
+
+
+def bf16_train_slice():
+    """(b) A seeded 256px state with bf16=True; run_iteration at TRAIN_ITERS:
+    finite, both bf16 instantiations and K1-K3 launched.  Returns (state,
+    tcfg, launches)."""
+    tcfg = TrainConfig(batch=2, augment=False, warmup_iter=1, bf16=True)
+    wgen = torch.Generator(device=DEV).manual_seed(30)
+    g, d = Generator(SIZE, rng=wgen, device=DEV), Discriminator(SIZE, rng=wgen, device=DEV)
+    randomize_zero_params(g, wgen)
+    randomize_zero_params(d, wgen)
+    state = init_train_state(GeneratorConfig(SIZE), DiscriminatorConfig(SIZE), tcfg, rng=wgen, device=DEV, g=g, d=d)
+    gen = torch.Generator(device=DEV).manual_seed(31)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for i in TRAIN_ITERS:
+        real = torch.randn((tcfg.batch, 3, SIZE, SIZE), generator=gen, device=DEV)
+        m = run_iteration(state, tcfg, real, i, gen=gen)
+        for k, v in m.items():
+            require(bool(torch.isfinite(v).all()), f"bf16 iteration {i}: metric {k} is not finite")
+        print(f"  i={i}: " + ", ".join(f"{k} {float(v):.4f}" for k, v in m.items()), flush=True)
+    torch.cuda.synchronize()
+    counts = bf16_counts()
+    for name in ("g", "d", "g_ema", "d_ema"):
+        for k, p in getattr(state, name).named_parameters():
+            require(p.dtype == torch.float32 and bool(torch.isfinite(p).all()), f"bf16 run: {name}.{k}")
+    check_counts(state, TRAIN_ITERS, tcfg)
+    print(f"  launches in the bf16 training run: {counts}", flush=True)
+    need = ("fused_bias_act", "fused_bias_act_bwd", "modconv_epilogue") + tuple(BF16_SOURCES)
+    require(all(counts[k] > 0 for k in need), f"a kernel did not launch in the bf16 training run: {counts}")
+    return state, tcfg, counts
+
+
+def bf16_ab(state, card: str, rounds: int = 3) -> dict:
+    """(d) The D and G phases in f32 and in bf16 on one state, alternated
+    for `rounds` rounds of 5 calls each; the median of each side's rounds.
+    Returns {(phase, bf16): ms}."""
+    gen = torch.Generator(device=DEV).manual_seed(32)
+    gcfg = state.g.cfg
+    real = torch.randn((2, 3, SIZE, SIZE), generator=gen, device=DEV)
+    cfgs = {bf16: TrainConfig(batch=2, augment=False, warmup_iter=1, bf16=bf16) for bf16 in (False, True)}
+
+    def run(phase, tcfg):
+        draws = sample_draws(gen, gcfg, tcfg, tcfg.batch)
+        if phase == "D":
+            steps.d_phase(state, tcfg, real, draws, False)
+        else:
+            steps.g_phase(state, tcfg, draws, False, do_ema=True)
+
+    runs = {}
+    for _ in range(rounds):
+        for bf16, tcfg in cfgs.items():
+            for phase in ("D", "G"):
+                runs.setdefault((phase, bf16), []).append(cuda_ms(lambda: run(phase, tcfg), iters=5))
+    ms = {k: float(np.median(v)) for k, v in runs.items()}
+    print(f"  D and G in f32 / bf16, alternated, median of {rounds} rounds of 5: " + "; ".join(
+        f"{ph} {ms[(ph, False)]:.2f} / {ms[(ph, True)]:.2f} ({ms[(ph, True)] / ms[(ph, False)] - 1:+.1%}; rounds "
+        f"{[round(x, 2) for x in runs[(ph, False)]]} / {[round(x, 2) for x in runs[(ph, True)]]})"
+        for ph in ("D", "G")) + f" ms [{card}]", flush=True)
+    return ms
+
+
+def bf16_eval(g_ema, ev, incp, card: str) -> dict:
+    """(e) One chunk of GEN_BATCH through `Evaluator(gen_dtype=bf16)` (phase
+    11's g_ema, real activations reused) against phase 11's f32 evaluator,
+    fixed latents and constant noise: activations within BF16_EVAL_TOL of
+    max|ref|; launches per chunk K4 6, K3 6 + K3-bf16 1 (conv1), K1 8; each
+    side's chunk timed.  Returns the launches of one chunk."""
+    ev16 = Evaluator(g_ema.cfg, fid_real_samples=np.zeros((1, 3, SIZE, SIZE), np.uint8), inception_nsamples=GEN_BATCH,
+                     batch_size=REAL_BATCH, inception_params=incp, gen_batch=GEN_BATCH, gen_dtype=torch.bfloat16,
+                     real_acts=ev._real_acts, seed=0, device=DEV)
+    z = torch.randn((GEN_BATCH, g_ema.cfg.style_dim), generator=torch.Generator(device=DEV).manual_seed(33), device=DEV)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    acts16 = ev16.activations(g_ema, z)
+    torch.cuda.synchronize()
+    counts = bf16_counts()
+    acts32 = ev.activations(g_ema, z)
+    _, rel = rel_err(acts16, acts32)
+    nrel = norm_err(acts16, acts32)
+    ms16, ms32 = (cuda_ms(lambda e=e: e.activations(g_ema, z), iters=3) for e in (ev16, ev))
+    fid16 = ev16.compute_inception_score(g_ema)["fid"]
+    print(f"  bf16 vs f32 generation, {GEN_BATCH} latents: activations {rel:.3e} of max|ref|, {nrel:.3e} in norm; "
+          f"chunk {ms16:.2f} ms bf16 / {ms32:.2f} ms f32 [{card}]; FID@{GEN_BATCH} bf16 {fid16:.4f}; launches {counts}",
+          flush=True)
+    per_chunk = {"convt_blur_act": 6, "modconv_epilogue": 6, "modconv_epilogue_bf16": 1, "fused_bias_act": 8,
+                 "fused_bias_act_bf16": 0}
+    require(all(counts[k] == v for k, v in per_chunk.items()), f"bf16 chunk launches {counts}, not {per_chunk}")
+    require(bool(torch.isfinite(acts16).all()) and rel <= BF16_EVAL_TOL and math.isfinite(fid16),
+            f"bf16 generation: {rel:.3e} > {BF16_EVAL_TOL} or FID {fid16}")
+    return counts
+
+
+def bf16_cli_run(card: str, root: str) -> dict:
+    """(f) The train CLI with --bf16 on phase 14's store: iterations 0-10,
+    FID@100 at 0 and 10.  Returns its launches."""
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    r = train_cli.main(cli_flags(root) + BF16_CLI_FLAGS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = bf16_counts()
+    out = Path(root) / "out" / "bf16"
+    recs = [json.loads(line) for line in (out / "stats.jsonl").read_text().splitlines()]
+    fids = [(rec["step"], rec["fid"]) for rec in recs if "fid" in rec]
+    print(f"  CLI --bf16 run: iterations {r['iterations']}, {r['fisher_rounds']} Fisher rounds, {r['evaluations']} "
+          f"evaluations of 100 samples, FID {fids}; wall {wall:.3f} s [{card}]; launches {counts}", flush=True)
+    require((r["iterations"], r["evaluations"]) == (11, 2), f"the CLI --bf16 run stopped early: {r}")
+    require(all(math.isfinite(f) for _, f in fids), f"a FID is not finite: {fids}")
+    require("bf16 : True" in (out / "args.txt").read_text().splitlines(), "args.txt does not record --bf16")
+    require(all(counts[k] > 0 for k in (*SOURCES, *BF16_SOURCES)), f"a kernel did not launch in the CLI --bf16 run: "
+                                                                    f"{counts}")
+    return counts
+
+
+def bf16_phase(g_ema, ev, incp, root: str, card: str) -> tuple:
+    """Phase 17.  Returns (per-kernel check rows, launches by run)."""
+    print(f"  (a) K1-bf16 and K3-bf16 vs plain at the bf16 phases' shapes (and K3-bf16 at (4,128,256,256)), "
+          f"TF32 off, tolerance {BF16_KERNEL_TOL} * max|ref|; first grads vs plain autograd", flush=True)
+    main_cases, streaming = bf16_kernel_cases(torch.Generator(device=DEV).manual_seed(88))
+    per_kernel = run_cases(main_cases)
+    run_cases(streaming)
+    grad_err = bf16_autograd()
+    print(f"  grads vs plain autograd, max abs err: {grad_err}", flush=True)
+    for name, err in grad_err.items():
+        per_kernel[name]["max_abs_err"] = max(per_kernel[name]["max_abs_err"], err)
+    print(f"  (b) training slice with bf16=True, iterations {TRAIN_ITERS}", flush=True)
+    state, tcfg, train_counts = bf16_train_slice()
+    print(f"  (c) the bf16 D and G phases vs plain (CPU), per tensor in norm within {BF16_TRAIN_TOL}", flush=True)
+    train_vs_plain(state, tcfg, phases=("d", "g"), fims=False, step_tol=BF16_TRAIN_TOL, v_tol=BF16_TRAIN_TOL)
+    print("  (d) timing: D and G in f32 and bf16 on one state", flush=True)
+    bf16_ab(state, card)
+    del state
+    print(f"  (e) Evaluator(gen_dtype=bf16): one chunk of {GEN_BATCH} vs f32", flush=True)
+    eval_counts = bf16_eval(g_ema, ev, incp, card)
+    print("  (f) train CLI with --bf16: 256px batch 2, iterations 0-10, FID@100", flush=True)
+    cli_counts = bf16_cli_run(card, root)
+    return per_kernel, {"bf16_training": train_counts, "bf16_eval": eval_counts, "bf16_cli": cli_counts}
+
+
 def main() -> int:
     card = card_line()
     print(card, flush=True)
@@ -1731,10 +1979,18 @@ def main() -> int:
         print(f"  peak device memory of (c): {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
         print(f"  (d) fid, kid and precision_recall CLIs on two .npy sets of {CLI_SET_N}", flush=True)
         metric_clis(g_ema, real, root, card)
-        del g_ema, ev, real
         score_counts = {k: pr_counts[k] + intra_counts[k] for k in pr_counts}
         print(f"  phase 16: {time.perf_counter() - t_score:.1f} s; VGG16/LPIPS card vs CPU worst {vgg_err:.3e}; "
               f"launches in the scoring runs (b) + (c) {score_counts}", flush=True)
+
+        print("[17] bf16: K1-bf16 and K3-bf16, the bf16 training phases, Evaluator(gen_dtype=bf16), train --bf16",
+              flush=True)
+        t_bf16 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        bf16_kernels, bf16_runs = bf16_phase(g_ema, ev, incp, root, card)
+        del g_ema, ev, real
+        print(f"  phase 17: {time.perf_counter() - t_bf16:.1f} s; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     print(f"  chip_smoke total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = []
@@ -1749,6 +2005,14 @@ def main() -> int:
             bound_by=k["bound_by"], library_ms=None, shape=k["shape"], launches_by_run=by_run,
         ))
     kernels += k5["entries"]
+    for name, (source, replaces) in BF16_SOURCES.items():
+        k = bf16_kernels[name]
+        by_run = {run: counts[name] for run, counts in bf16_runs.items()}
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces, launches=sum(by_run.values()),
+            max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+            bound_by=k["bound_by"], library_ms=None, shape=k["shape"], launches_by_run=by_run,
+        ))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -3,10 +3,11 @@ flags of `rick_tpu.cli.train` (the reference's `train_dynamic_update_prune.py`
 flags plus rick_tpu's).  Port of `rick_tpu/cli/train.py`.
 
 It runs on the card; `main(argv, device="cpu")` runs the same loop on the
-CPU.  Flags whose path is not ported yet (`--bf16`, `--n_devices` > 1, a
-multi-process launch) raise NotImplementedError before any work.  TF32 is
-off for cuDNN and matmuls: f32 is the precision every parity check of the
-port holds.
+CPU.  Flags whose path is not ported yet (`--n_devices` > 1, a multi-process
+launch) raise NotImplementedError before any work.  `--bf16` runs the D and
+G phases with the compute dtype bf16, as rick_tpu's (`train/steps.py`).
+TF32 is off for cuDNN and matmuls: f32 is the precision every parity check
+of the port holds.
 
 Artifacts are `rick_tpu`'s: `args.txt`, the script copy, the few-shot index,
 `stats.jsonl`, sample grids, `{i:06d}.state.npz` (rick_tpu's resume format,
@@ -121,7 +122,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--eval_bf16", action="store_true", help="bfloat16 InceptionV3 feature extraction during eval")
     p.add_argument("--eval_nhwc", action="store_true", help="run the eval InceptionV3 in channels_last")
     p.add_argument("--bf16", action="store_true",
-                   help="bfloat16 compute for the D/G adversarial phases (not ported yet)")
+                   help="bfloat16 compute for the D/G adversarial phases "
+                        "(params/optimizer/regularizers stay f32)")
     p.add_argument("--resume", type=str, default="")
     p.add_argument("--auto_resume", action="store_true",
                    help="resume from the latest .state.npz in the checkpoint dir")
@@ -133,8 +135,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def refuse_unported(args) -> None:
     """Raise NotImplementedError for a flag whose path is not ported yet."""
-    if args.bf16:
-        raise NotImplementedError("--bf16: the bf16 phases are not ported yet (ROADMAP queue 1)")
     if args.n_devices > 1:
         raise NotImplementedError("--n_devices > 1: multi-GPU training is ROADMAP queue 1 item 13")
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:

@@ -24,6 +24,13 @@
 // grid: x over the row's spatial elements, y over rows.  A 2-D input (N, C)
 // takes its bias on the last dim, one thread per element; those are the
 // style-MLP and head activations, a few thousand elements.
+//
+// K1 has a second instantiation, rick_fused_bias_act_bf16: x bf16, bias and
+// y f32.  It is what rick_tpu computes where a bf16 layer meets its f32
+// activation bias (the first conv of D under --bf16): JAX promotes
+// x + bias to f32, so the activation and y are f32.  Each thread reads four
+// bf16 (8 bytes) and writes a float4: 6 bytes per element.  K2 has no bf16
+// form: on that path y and its cotangent are f32.
 
 #include "common.cuh"
 
@@ -38,25 +45,53 @@ __device__ __forceinline__ float4 fba(float4 v, float b, float slope, float scal
                      fba(v.z, b, slope, scale), fba(v.w, b, slope, scale));
 }
 
-// x viewed as (rows, inner) with rows = N*C; T = float4 when inner % 4 == 0.
-template <typename T>
-__global__ void fba_rows(const T* __restrict__ x, const float* __restrict__ bias,
-                         T* __restrict__ y, int rows, int C, int inner_v, float slope,
+// x viewed as (rows, inner) with rows = N*C; TIn = float4 (or bf16x4) when
+// inner % 4 == 0, TOut its f32 width.
+template <typename TIn, typename TOut>
+__global__ void fba_rows(const TIn* __restrict__ x, const float* __restrict__ bias,
+                         TOut* __restrict__ y, int rows, int C, int inner_v, float slope,
                          float scale) {
   for (int row = blockIdx.y; row < rows; row += gridDim.y) {
     const float b = __ldg(bias + row % C);
     const long long base = (long long)row * inner_v;
     for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < inner_v; j += gridDim.x * blockDim.x)
-      y[base + j] = fba(x[base + j], b, slope, scale);
+      y[base + j] = fba(rick::to_f32(x[base + j]), b, slope, scale);
   }
 }
 
 // 2-D (N, C): bias on the last dim.
-__global__ void fba_lastdim(const float* __restrict__ x, const float* __restrict__ bias,
+template <typename TIn>
+__global__ void fba_lastdim(const TIn* __restrict__ x, const float* __restrict__ bias,
                             float* __restrict__ y, long long n, int C, float slope, float scale) {
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
        i += (long long)gridDim.x * blockDim.x)
-    y[i] = fba(x[i], __ldg(bias + i % C), slope, scale);
+    y[i] = fba(rick::to_f32(x[i]), __ldg(bias + i % C), slope, scale);
+}
+
+// K1 with x read as TS (scalar) or TV (4 elements); y f32.
+template <typename TS, typename TV>
+void launch_fba(const void* x, const float* b, void* y, long long n, int C, long long inner,
+                float slope, float scale, cudaStream_t s) {
+  if (inner == 1) {
+    const int threads = 256;
+    long long blocks = (n + threads - 1) / threads;
+    if (blocks > 4096) blocks = 4096;
+    fba_lastdim<TS><<<(unsigned)blocks, threads, 0, s>>>(static_cast<const TS*>(x), b,
+                                                         static_cast<float*>(y), n, C, slope, scale);
+    return;
+  }
+  const long long rows = n / inner;
+  if (inner % 4 == 0 && rick::aligned(x, sizeof(TV)) && rick::aligned16(y)) {
+    const int threads = rick::rows_threads(inner / 4);
+    fba_rows<TV, float4><<<rick::rows_grid(rows, inner / 4, threads), threads, 0, s>>>(
+        static_cast<const TV*>(x), b, static_cast<float4*>(y), (int)rows, C, (int)(inner / 4),
+        slope, scale);
+  } else {
+    const int threads = rick::rows_threads(inner);
+    fba_rows<TS, float><<<rick::rows_grid(rows, inner, threads), threads, 0, s>>>(
+        static_cast<const TS*>(x), b, static_cast<float*>(y), (int)rows, C, (int)inner, slope,
+        scale);
+  }
 }
 
 // K2: the same row and last-dim layouts as K1; three streams (g, y, out)
@@ -124,28 +159,17 @@ void launch_fba_bwd(const void* g, const void* y, const float* bias, void* out, 
 
 extern "C" int rick_fused_bias_act(const void* x, const void* bias, void* y, long long n, int C,
                                    long long inner, float slope, float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* b = static_cast<const float*>(bias);
-  if (inner == 1) {
-    const int threads = 256;
-    long long blocks = (n + threads - 1) / threads;
-    if (blocks > 4096) blocks = 4096;
-    fba_lastdim<<<(unsigned)blocks, threads, 0, s>>>(static_cast<const float*>(x), b,
-                                                     static_cast<float*>(y), n, C, slope, scale);
-  } else {
-    const long long rows = n / inner;
-    if (inner % 4 == 0 && rick::aligned16(x) && rick::aligned16(y)) {
-      const int threads = rick::rows_threads(inner / 4);
-      fba_rows<float4><<<rick::rows_grid(rows, inner / 4, threads), threads, 0, s>>>(
-          static_cast<const float4*>(x), b, static_cast<float4*>(y), (int)rows, C,
-          (int)(inner / 4), slope, scale);
-    } else {
-      const int threads = rick::rows_threads(inner);
-      fba_rows<float><<<rick::rows_grid(rows, inner, threads), threads, 0, s>>>(
-          static_cast<const float*>(x), b, static_cast<float*>(y), (int)rows, C, (int)inner,
-          slope, scale);
-    }
-  }
+  launch_fba<float, float4>(x, static_cast<const float*>(bias), y, n, C, inner, slope, scale,
+                            static_cast<cudaStream_t>(stream));
+  return (int)cudaGetLastError();
+}
+
+// The bf16 instantiation: x bf16; bias and y f32.
+extern "C" int rick_fused_bias_act_bf16(const void* x, const void* bias, void* y, long long n,
+                                        int C, long long inner, float slope, float scale,
+                                        void* stream) {
+  launch_fba<__nv_bfloat16, rick::bf16x4>(x, static_cast<const float*>(bias), y, n, C, inner,
+                                          slope, scale, static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }
 

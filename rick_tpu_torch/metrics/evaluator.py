@@ -16,8 +16,14 @@ with `seed`.  `fast_gen=None` takes the fused upsample kernel (K4) wherever
 g_ema is on a CUDA device and the plain chain on the CPU; an explicit bool is
 the caller's choice.
 
-Not here: the data-parallel mesh (`mesh=`) and a generation dtype other
-than float32 (both raise NotImplementedError, see ROADMAP).
+`gen_dtype` is the compute dtype of the FID draws' generation, as rick_tpu's
+(`generator_apply(..., dtype=gen_dtype)`); precision/recall, `generate` and
+intra-LPIPS generate in f32 there and here.  With bf16 only G's first
+StyledConv computes in bf16 (K3's bf16 instantiation): its f32 activation
+bias makes its output f32, so K4, at every upsample StyledConv after it,
+takes f32 as it does in f32 generation.
+
+Not here: the data-parallel mesh (`mesh=`, NotImplementedError, see ROADMAP).
 """
 
 from __future__ import annotations
@@ -100,9 +106,8 @@ class Evaluator:
         defaults)."""
         if mesh is not None:
             raise NotImplementedError("Evaluator(mesh=...): the sharded eval is ROADMAP queue 1 item 13")
-        if gen_dtype != torch.float32:
-            raise NotImplementedError(f"gen_dtype {gen_dtype}: generation runs in float32 only (K4 is f32)")
         self.gcfg = gcfg
+        self.gen_dtype = gen_dtype
         self.device = torch.empty(0, device=device).device  # "cuda" -> "cuda:0", as a module reports it
         self._fast = self.device.type == "cuda" if fast_gen is None else bool(fast_gen)
         real = fid_real_samples
@@ -144,13 +149,14 @@ class Evaluator:
 
     def activations(self, g_ema, z: torch.Tensor, *, rng: Optional[torch.Generator] = None) -> torch.Tensor:
         """pool3 activations (n, d), f32 on the device, of g_ema's images of
-        the latents `z` (n, latent), in chunks of `gen_batch`; noise is drawn
-        from `rng`, or is the generator's constant buffers when `rng` is None."""
+        the latents `z` (n, latent), generated in `gen_dtype`, in chunks of
+        `gen_batch`; noise is drawn from `rng`, or is the generator's
+        constant buffers when `rng` is None."""
         self._check(g_ema)
         out = []
         with torch.inference_mode():
             for zc in z.split(self.gen_batch):
-                imgs, _ = g_ema([zc], rng=rng, fast=self._fast)
+                imgs, _ = g_ema([zc], rng=rng, dtype=self.gen_dtype, fast=self._fast)
                 out.append(self.inception.pool3(imgs, **self._pool3_kw).float())
         return torch.cat(out)
 

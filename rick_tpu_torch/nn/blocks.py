@@ -9,6 +9,16 @@ state dict.
 Every constructor that draws weights takes `rng`, a `torch.Generator` on the
 module's `device`: no global RNG state is used.
 
+Compute dtype: parameters stay f32, and each block casts them to its
+input's dtype where rick_tpu's blocks cast (`astype(x.dtype)`), so a bf16
+input runs the layer in bf16 exactly as rick_tpu's does.  A Python scalar
+applied to a bf16 tensor is first rounded to bf16 (`weak_scalar`), as JAX
+applies a weakly typed scalar; every cast is written out, since torch's
+promotion differs from JAX's (a (1,)-shaped f32 times a bf16 tensor is f32
+in torch, and a 0-d f32 times a bf16 tensor is bf16).  The activations'
+biases stay f32, so the first biased activation after a bf16 layer gives
+f32, as JAX promotes bf16 + f32.
+
 `StyledConv` runs through the fused kernels: the upsample branch through
 `convt_blur_act` when the caller asks for it (`fast=True`, forward only, as
 in JAX), else through the differentiable chain; the other branch (with
@@ -19,6 +29,7 @@ tensor.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Sequence
 
@@ -38,6 +49,13 @@ from rick_tpu_torch.ops import (
 
 def _randn(shape, rng: torch.Generator, device) -> torch.Tensor:
     return torch.randn(shape, generator=rng, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def weak_scalar(value: float, dtype: torch.dtype) -> float:
+    """`value` as JAX applies a Python scalar to an array of `dtype`: rounded
+    to that dtype first (for f32, what torch does with the scalar too)."""
+    return float(torch.tensor(value, dtype=dtype))
 
 
 def pixel_norm(x: torch.Tensor) -> torch.Tensor:
@@ -91,8 +109,8 @@ class EqualLinear(nn.Module):
         self.activation = activation
 
     def forward(self, x):
-        w = self.weight * self.scale
-        b = self.bias * self.lr_mul
+        w = self.weight.to(x.dtype) * weak_scalar(self.scale, x.dtype)
+        b = self.bias.to(x.dtype) * weak_scalar(self.lr_mul, x.dtype)
         if self.activation == "fused_lrelu":
             return fused_leaky_relu(F.linear(x, w), b)
         return F.linear(x, w, b)
@@ -111,7 +129,9 @@ class EqualConv2d(nn.Module):
         self.padding = padding
 
     def forward(self, x):
-        return F.conv2d(x, self.weight * self.scale, self.bias, stride=self.stride, padding=self.padding)
+        w = self.weight.to(x.dtype) * weak_scalar(self.scale, x.dtype)
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv2d(x, w, b, stride=self.stride, padding=self.padding)
 
 
 class ModulatedConv2d(nn.Module):
@@ -145,14 +165,15 @@ class ModulatedConv2d(nn.Module):
             self.blur = Blur(blur_kernel, ((p + 1) // 2, p // 2), device=device)
 
     def modulate(self, x, style):
-        """(x * style, scaled 4-D weight, demod (B, out) or None)."""
+        """(x * style, scaled 4-D weight, demod (B, out) or None), in x's
+        dtype; the demod sums in f32."""
         s = self.modulation(style)  # (B, in)
-        weight = self.weight[0] * self.scale
+        weight = self.weight[0].to(x.dtype) * weak_scalar(self.scale, x.dtype)
         demod = None
         if self.demodulate:
-            w2 = (weight * weight).sum(dim=(2, 3))  # (out, in)
-            demod = torch.rsqrt((s * s) @ w2.t() + 1e-8)
-        return x * s[:, :, None, None], weight, demod
+            w2 = (weight * weight).float().sum(dim=(2, 3))  # (out, in)
+            demod = torch.rsqrt((s * s).float() @ w2.t() + 1e-8).to(x.dtype)
+        return x * s[:, :, None, None].to(x.dtype), weight, demod
 
     def forward(self, x, style, *, defer_demod: bool = False):
         """`defer_demod=True` (plain branch only) returns (out, demod) for a
@@ -182,7 +203,7 @@ class NoiseInjection(nn.Module):
     def forward(self, image, noise=None):
         if noise is None:
             return image
-        return image + self.weight * noise
+        return image + self.weight.to(image.dtype) * noise.to(image.dtype)
 
 
 class ConstantInput(nn.Module):
@@ -190,8 +211,8 @@ class ConstantInput(nn.Module):
         super().__init__()
         self.input = nn.Parameter(_randn((1, channel, size, size), rng, device))
 
-    def forward(self, batch: int):
-        return self.input.repeat(batch, 1, 1, 1)
+    def forward(self, batch: int, dtype: torch.dtype = torch.float32):
+        return self.input.to(dtype).repeat(batch, 1, 1, 1)
 
 
 class FusedLeakyReLU(nn.Module):
@@ -245,7 +266,8 @@ class StyledConv(nn.Module):
             )
         if not self.conv.upsample and noise is not None:
             out, demod = self.conv(x, style, defer_demod=True)
-            return modconv_epilogue(out, demod, noise, self.noise.weight, self.activate.bias)
+            return modconv_epilogue(out, demod, noise.to(out.dtype), self.noise.weight.to(out.dtype),
+                                    self.activate.bias)
         out = self.conv(x, style)
         out = self.noise(out, noise)
         return self.activate(out)
@@ -265,7 +287,8 @@ class ToRGB(nn.Module):
         self.bias = nn.Parameter(torch.zeros(1, 3, 1, 1, device=device))
 
     def forward(self, x, style, skip=None):
-        out = self.conv(x, style) + self.bias
+        out = self.conv(x, style)
+        out = out + self.bias.to(out.dtype)
         if skip is not None:
             out = out + self.upsample(skip)
         return out

@@ -69,9 +69,16 @@ class Discriminator(nn.Module):
             EqualLinear(ch[4], 1, **kw),
         )
 
-    def forward(self, x, *, stddev_splits: int = 1):
+    def forward(self, x, *, dtype: torch.dtype = torch.float32, stddev_splits: int = 1):
         """`stddev_splits=s` takes the minibatch-stddev statistics within `s`
-        contiguous sub-batches (equal to `s` separate forwards)."""
+        contiguous sub-batches (equal to `s` separate forwards).
+
+        x is cast to `dtype` first, as `discriminator_apply` does; each layer
+        computes in its input's dtype.  With bf16 that is the from-RGB conv
+        alone (then K1's bf16 instantiation), whose f32 activation bias makes
+        its output f32: every later feature and the score are f32, as in
+        rick_tpu."""
+        x = x.to(dtype)
         feats = []
         out = self.convs[0](x)
         feats.append(out)

@@ -172,6 +172,7 @@ class Generator(nn.Module):
         input_is_latent: bool = False,
         return_latents: bool = False,
         return_feats: bool = False,
+        dtype: torch.dtype = torch.float32,
         fast: bool = False,
     ):
         """Returns (image, aux): aux is the latent (return_latents), the list
@@ -179,7 +180,14 @@ class Generator(nn.Module):
         `noise=None` select the registered constant noise buffers.
         `fast=True` runs the upsample StyledConvs through the fused
         `convt_blur_act` kernel, which is forward only: for generation, not
-        for a pass that is differentiated."""
+        for a pass that is differentiated.
+
+        `dtype` is the trunk's compute dtype, as `generator_apply_latent`'s:
+        the constant input is cast to it, and each layer computes in its
+        input's dtype.  With bf16 that is the first StyledConv alone (K3's
+        bf16 instantiation), whose f32 activation bias makes its output f32,
+        so every later layer, feature and the image are f32, as in rick_tpu.
+        The style MLP and the latent are f32 either way."""
         latent = self.make_latent(
             styles,
             inject_index=inject_index,
@@ -190,7 +198,7 @@ class Generator(nn.Module):
         noise = self.layer_noise(latent.shape[0], rng, noise)
 
         feats = []
-        out = self.input(latent.shape[0])
+        out = self.input(latent.shape[0], dtype)
         out = self.conv1(out, latent[:, 0], noise[0])
         feats.append(out)
         skip = self.to_rgb1(out, latent[:, 1])

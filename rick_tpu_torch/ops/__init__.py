@@ -5,6 +5,8 @@ Every kernel wrapper (`fused_bias_act`, `fused_bias_act_bwd`,
 tensors and launches its CUDA kernel for CUDA tensors; `KERNELS` lists them,
 each with a `launches` count.  `fused_bias_act` and `modconv_epilogue` are
 differentiable twice; `convt_blur_act` is forward only, as in JAX.
+`fused_bias_act` and `modconv_epilogue` have a bf16 instantiation too
+(`BF16_KERNELS`), counted apart in `launches_bf16`.
 `convt_blur_act_stage` (K5, the stage ablation of `convt_blur_act`) runs only
 in the ablation tool and counts its launches per stage.
 """
@@ -36,21 +38,32 @@ from rick_tpu_torch.ops.resample import (
 )
 
 KERNELS = (fused_bias_act, fused_bias_act_bwd, modconv_epilogue, convt_blur_act)
+BF16_KERNELS = (fused_bias_act, modconv_epilogue)
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+    for k in BF16_KERNELS:
+        k.launches_bf16 = 0
     convt_blur_act_stage.launches = dict.fromkeys(STAGES, 0)
 
 
 def launch_counts() -> dict:
+    """{kernel: launches of its f32 form}."""
     return {k.__name__: k.launches for k in KERNELS}
 
 
+def bf16_launch_counts() -> dict:
+    """{kernel + "_bf16": launches of its bf16 instantiation}."""
+    return {f"{k.__name__}_bf16": k.launches_bf16 for k in BF16_KERNELS}
+
+
 __all__ = [
+    "BF16_KERNELS",
     "KERNELS",
     "STAGES",
+    "bf16_launch_counts",
     "blur",
     "convt_blur_act",
     "convt_blur_act_ref",

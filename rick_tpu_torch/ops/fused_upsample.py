@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from rick_tpu_torch.ops import _build
-from rick_tpu_torch.ops.kernels import _require, check_cuda_f32, forbid_autograd
+from rick_tpu_torch.ops.kernels import _require, check_cuda, forbid_autograd
 from rick_tpu_torch.ops.resample import blur
 
 # K5's stages, in the kernel's order (the `stage` argument of the entry point)
@@ -131,7 +131,7 @@ def _launch(name: str, stage: str, xs, weight, demod, noise, act_bias, *,
         act_bias = torch.zeros(Cout, device=xs.device)
     _require(tuple(act_bias.shape) == (Cout,), f"{name}: bias {tuple(act_bias.shape)} != ({Cout},)")
     tensors = dict(xs=xs, weight=weight, demod=demod, noise=noise, act_bias=act_bias)
-    check_cuda_f32(name, xs.device, **tensors)
+    check_cuda(name, xs.device, torch.float32, **tensors)
     forbid_autograd(name, **tensors)
     wt = _kernel_weights(weight)
     # the kernel reads xs by TMA, in rows a multiple of 16 bytes apart from a

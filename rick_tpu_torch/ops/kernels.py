@@ -15,6 +15,14 @@ its kernel (`csrc/fused_bias_act.cu`, `csrc/modconv_epilogue.cu`) for a CUDA
 tensor, and raises on anything else.  `<wrapper>.launches` counts kernel
 launches.
 
+K1 and K3 also take bf16, as rick_tpu computes them at the two layers its
+`bf16=True` runs in bf16 (G's first StyledConv, D's from-RGB conv): K1 a bf16
+x with an f32 bias, K3 bf16 out/demod/noise/noise weight with an f32 bias,
+both giving f32 (JAX promotes bf16 + f32 to f32).  A bf16 CUDA tensor
+launches the bf16 instantiation (`<wrapper>.launches_bf16`); any other dtype
+raises.  Their backward rounds the cotangent of each bf16 operand to bf16
+once, from the f32 K2 result, as the transpose of JAX's bf16 -> f32 convert.
+
 `fused_bias_act` and `modconv_epilogue` are differentiable twice, as R1 and
 the path-length regularizer need: `FusedBiasAct`'s backward is the Function
 `FusedBiasActBackward` (K2 and a bias sum), whose own backward is K2 again
@@ -71,12 +79,21 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
-def check_cuda_f32(name: str, device: torch.device, **tensors) -> None:
-    """Device, dtype and contiguity checks shared by the wrappers."""
+def check_cuda(name: str, device: torch.device, dtype: torch.dtype, **tensors) -> None:
+    """Device, dtype and contiguity checks shared by the wrappers: each
+    tensor on `device`, of `dtype`, contiguous."""
     for k, t in tensors.items():
         _require(t.device == device, f"{name}: {k} is on {t.device}, expected {device}")
-        _require(t.dtype == torch.float32, f"{name}: {k} has dtype {t.dtype}, expected float32")
+        _require(t.dtype == dtype, f"{name}: {k} has dtype {t.dtype}, expected {dtype}")
         _require(t.is_contiguous(), f"{name}: {k} must be contiguous")
+
+
+def instantiation(name: str, x: torch.Tensor) -> bool:
+    """True for the bf16 instantiation, False for the f32 one; any other
+    dtype of `x` raises."""
+    _require(x.dtype in (torch.float32, torch.bfloat16),
+             f"{name}: dtype {x.dtype}: the kernel takes float32 or bfloat16")
+    return x.dtype == torch.bfloat16
 
 
 def forbid_autograd(name: str, **tensors) -> None:
@@ -109,16 +126,22 @@ def _fused_bias_act_fwd(x: torch.Tensor, bias: torch.Tensor, slope: float, scale
     if x.device.type == "cpu":
         return fused_bias_act_ref(x, bias, slope, scale)
     C, inner = _fba_shape_args("fused_bias_act", x, bias)
-    check_cuda_f32("fused_bias_act", x.device, x=x, bias=bias)
-    y = torch.empty_like(x)
+    bf16 = instantiation("fused_bias_act", x)
+    check_cuda("fused_bias_act", x.device, x.dtype, x=x)
+    check_cuda("fused_bias_act", x.device, torch.float32, bias=bias)
+    y = torch.empty_like(x, dtype=torch.float32)
     if x.numel() == 0:
         return y
-    code = _build.lib().rick_fused_bias_act(
+    entry = _build.lib().rick_fused_bias_act_bf16 if bf16 else _build.lib().rick_fused_bias_act
+    code = entry(
         x.data_ptr(), bias.data_ptr(), y.data_ptr(), x.numel(), C, inner,
         float(slope), float(scale), _build.stream_ptr(x.device),
     )
     _build.check(code, "fused_bias_act")
-    fused_bias_act.launches += 1
+    if bf16:
+        fused_bias_act.launches_bf16 += 1
+    else:
+        fused_bias_act.launches += 1
     return y
 
 
@@ -133,7 +156,7 @@ def fused_bias_act_bwd(g: torch.Tensor, y: torch.Tensor, bias=None, slope: float
     C, inner = _fba_shape_args("fused_bias_act_bwd", g, bias)
     _require(y.shape == g.shape, f"fused_bias_act_bwd: y {tuple(y.shape)} != g {tuple(g.shape)}")
     tensors = dict(g=g, y=y) if bias is None else dict(g=g, y=y, bias=bias)
-    check_cuda_f32("fused_bias_act_bwd", g.device, **tensors)
+    check_cuda("fused_bias_act_bwd", g.device, torch.float32, **tensors)
     forbid_autograd("fused_bias_act_bwd", **tensors)
     out = torch.empty_like(g)
     if g.numel() == 0:
@@ -179,16 +202,18 @@ class FusedBiasAct(torch.autograd.Function):
     def forward(ctx, x, bias, slope: float, scale: float):
         y = _fused_bias_act_fwd(x, bias, slope, scale)
         ctx.save_for_backward(y)
-        ctx.slope, ctx.scale = slope, scale
+        ctx.slope, ctx.scale, ctx.x_dtype = slope, scale, x.dtype
         return y
 
     @staticmethod
     def backward(ctx, g):
         # y only selects the slope: detached, so that a double backward does
-        # not run this backward again on a zero gradient
+        # not run this backward again on a zero gradient.  gb sums the f32
+        # gx; a bf16 x takes gx rounded once.
         (y,) = ctx.saved_tensors
         gx, gb = FusedBiasActBackward.apply(g, y.detach(), ctx.slope, ctx.scale)
-        return (gx if ctx.needs_input_grad[0] else None), (gb if ctx.needs_input_grad[1] else None), None, None
+        gx = gx.to(ctx.x_dtype) if ctx.needs_input_grad[0] else None
+        return gx, (gb if ctx.needs_input_grad[1] else None), None, None
 
 
 def fused_bias_act(x: torch.Tensor, bias: torch.Tensor, slope: float = 0.2, scale: float = SQRT2):
@@ -198,6 +223,7 @@ def fused_bias_act(x: torch.Tensor, bias: torch.Tensor, slope: float = 0.2, scal
 
 
 fused_bias_act.launches = 0
+fused_bias_act.launches_bf16 = 0
 
 
 def _modconv_epilogue_fwd(out, demod, noise, noise_weight, bias, slope: float, scale: float):
@@ -214,27 +240,36 @@ def _modconv_epilogue_fwd(out, demod, noise, noise_weight, bias, slope: float, s
     )
     _require(noise_weight.numel() == 1, "modconv_epilogue: noise_weight must have one element")
     _require(tuple(bias.shape) == (C,), f"modconv_epilogue: bias {tuple(bias.shape)} != ({C},)")
-    check_cuda_f32(
-        "modconv_epilogue", out.device,
-        out=out, demod=demod, noise=noise, noise_weight=noise_weight, bias=bias,
+    bf16 = instantiation("modconv_epilogue", out)
+    check_cuda(
+        "modconv_epilogue", out.device, out.dtype,
+        out=out, demod=demod, noise=noise, noise_weight=noise_weight,
     )
-    y = torch.empty_like(out)
+    check_cuda("modconv_epilogue", out.device, torch.float32, bias=bias)
+    y = torch.empty_like(out, dtype=torch.float32)
     if out.numel() == 0:
         return y
-    code = _build.lib().rick_modconv_epilogue(
+    entry = _build.lib().rick_modconv_epilogue_bf16 if bf16 else _build.lib().rick_modconv_epilogue
+    code = entry(
         out.data_ptr(), demod.data_ptr(), noise.data_ptr(), noise_weight.data_ptr(),
         bias.data_ptr(), y.data_ptr(), B, C, H * W, int(noise.shape[0] == B),
         float(slope), float(scale), _build.stream_ptr(out.device),
     )
     _build.check(code, "modconv_epilogue")
-    modconv_epilogue.launches += 1
+    if bf16:
+        modconv_epilogue.launches_bf16 += 1
+    else:
+        modconv_epilogue.launches += 1
     return y
 
 
 class ModconvEpilogue(torch.autograd.Function):
     """K3 forward; the backward is `_epi_bwd_rule`: the activation's
     derivative by K2 (no bias), the rest torch products and sums, all
-    differentiable, so the epilogue is differentiable twice."""
+    differentiable, so the epilogue is differentiable twice.  The
+    pre-activation's cotangent is f32; with bf16 operands it is rounded to
+    bf16 once, and the products and sums that follow run in bf16, as JAX
+    differentiates rick_tpu's bf16 chain."""
 
     @staticmethod
     def forward(ctx, out, demod, noise, noise_weight, bias, slope: float, scale: float):
@@ -248,14 +283,14 @@ class ModconvEpilogue(torch.autograd.Function):
         y, out, demod, noise, noise_weight = ctx.saved_tensors
         need = ctx.needs_input_grad
         g_pre, d_bias = FusedBiasActBackward.apply(g, y.detach(), ctx.slope, ctx.scale)
+        g_pre = g_pre.to(out.dtype)
         d_out = g_pre * demod[:, :, None, None] if need[0] else None
         d_demod = (g_pre * out).sum(dim=(2, 3)) if need[1] else None
-        d_noise = None
-        if need[2]:
-            d_noise = noise_weight.reshape(()) * g_pre.sum(dim=1, keepdim=True)
-            if noise.shape[0] != d_noise.shape[0]:  # one noise map for the batch
-                d_noise = d_noise.sum(dim=0, keepdim=True)
-        d_nw = (g_pre * noise).sum().reshape(noise_weight.shape) if need[3] else None
+        # the cotangent of nw * noise: summed over the dims it is broadcast
+        # over, the channels and, for one noise map, the batch
+        d_prod = g_pre.sum(dim=(1,) if noise.shape[0] == out.shape[0] else (0, 1), keepdim=True)
+        d_noise = noise_weight.reshape(()) * d_prod if need[2] else None
+        d_nw = (d_prod * noise).sum().reshape(noise_weight.shape) if need[3] else None
         return d_out, d_demod, d_noise, d_nw, (d_bias if need[4] else None), None, None
 
 
@@ -277,3 +312,4 @@ def modconv_epilogue(
 
 
 modconv_epilogue.launches = 0
+modconv_epilogue.launches_bf16 = 0

@@ -24,7 +24,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from rick_tpu_torch.metrics import Evaluator
 from rick_tpu_torch.nn import Discriminator, Generator
-from rick_tpu_torch.ops import _build, launch_counts, reset_launch_counts
+from rick_tpu_torch.ops import _build, bf16_launch_counts, launch_counts, reset_launch_counts
 
 GEN_BATCH = 100
 D_BATCH = 16
@@ -62,7 +62,7 @@ def profile_phase(label: str, fn) -> None:
     busy_ms = sum(r[0] for r in rows) / 1e3
     print(f"== {label}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
           f"({100 * busy_ms / wall_ms:.1f}% of wall), {sum(r[1] for r in rows)} kernel launches")
-    print(f"   port kernel launches: {launch_counts()}")
+    print(f"   port kernel launches: {launch_counts()}, bf16 instantiations {bf16_launch_counts()}")
     for us, count, key in rows[:TOP]:
         print(f"  {us / 1e3:9.3f} ms {100 * us / 1e3 / max(busy_ms, 1e-9):5.1f}%  x{count:<5d} {key[:110]}")
 

@@ -1,9 +1,10 @@
 """Device-time breakdown of the 256px batch-2 training phases on one GPU.
 
-    python -m rick_tpu_torch.tools.profile_train
+    python -m rick_tpu_torch.tools.profile_train [--bf16]
 
 Builds a seeded Generator(256) / Discriminator(256) training state on the
-card (`TrainConfig(batch=2, augment=False)`, after warmup), runs each phase
+card (`TrainConfig(batch=2, augment=False)`, after warmup; `--bf16` sets
+`bf16=True`, the D and G phases' compute dtype), runs each phase
 once to warm up, then profiles one D, R1, G and path-length phase and one
 Fisher round (5 images) under `torch.profiler`.  Prints, per phase, the
 wall time, the summed device time, the device busy share, the kernels by
@@ -12,6 +13,8 @@ chip_smoke.py.
 """
 
 from __future__ import annotations
+
+import argparse
 
 import torch
 
@@ -24,12 +27,15 @@ SIZE = 256
 N_FISHER = 5
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description="device-time breakdown of the 256px batch-2 training phases")
+    p.add_argument("--bf16", action="store_true", help="bf16 compute in the D and G phases, as train --bf16")
+    args = p.parse_args(argv)
     start_on_card("profile_train")
 
     dev = "cuda"
     gcfg, dcfg = GeneratorConfig(SIZE), DiscriminatorConfig(SIZE)
-    tcfg = TrainConfig(batch=2, augment=False, warmup_iter=0)
+    tcfg = TrainConfig(batch=2, augment=False, warmup_iter=0, bf16=args.bf16)
     gen = torch.Generator(device=dev).manual_seed(0)
     state = init_train_state(gcfg, dcfg, tcfg, rng=gen, device=dev)
     real = torch.randn((tcfg.batch, 3, SIZE, SIZE), generator=gen, device=dev)
@@ -47,7 +53,7 @@ def main() -> None:
             fisher_quantile=tcfg.fisher_quantile, prune_quantile=tcfg.prune_quantile, gen=gen),
     }
     for label, fn in phases.items():
-        profile_phase(f"{label} ({SIZE}px, batch {tcfg.batch})", fn)
+        profile_phase(f"{label} ({SIZE}px, batch {tcfg.batch}{', bf16' if tcfg.bf16 else ''})", fn)
 
 
 if __name__ == "__main__":

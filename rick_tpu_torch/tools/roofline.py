@@ -8,6 +8,10 @@ operations over the f32 rate, and its tensor-core operations over the TF32
 rate.  K4 (`csrc/convt_blur_act.cu`) runs the transposed conv as 3xTF32, so
 its conv counts three times (hi*hi, hi*lo, lo*hi) at the TF32 rate, and its
 blur and epilogue at the f32 rate.
+
+K1 and K3 are bound by their bytes.  Their bf16 instantiations read bf16
+(2 bytes an element) and write f32 (4), so `fused_bias_act_bytes` and
+`modconv_epilogue_bytes` take the input's element size.
 """
 
 from __future__ import annotations
@@ -29,3 +33,16 @@ def convt_ops(batch: int, cin: int, cout: int, h: int, w: int | None = None) -> 
     """The transposed conv's operations (multiply-adds x 2): 9 taps of Cin
     per (input pixel, output channel)."""
     return 2 * batch * cin * cout * 9 * h * (h if w is None else w)
+
+
+def fused_bias_act_bytes(numel: int, channels: int, x_bytes: int = 4) -> int:
+    """K1's bytes: x read (`x_bytes` an element), the f32 y written, the f32
+    bias read."""
+    return numel * (x_bytes + 4) + 4 * channels
+
+
+def modconv_epilogue_bytes(batch: int, channels: int, hw: int, noise_batch: int, in_bytes: int = 4) -> int:
+    """K3's bytes: out, demod, the noise maps and the noise weight read
+    (`in_bytes` an element), the f32 bias read, the f32 y written."""
+    out = batch * channels * hw
+    return out * (in_bytes + 4) + in_bytes * (batch * channels + noise_batch * hw + 1) + 4 * channels

@@ -126,9 +126,8 @@ def init_train_state(
 ) -> TrainState:
     """The full training state on `device` (the card unless the caller asks
     for the CPU).  G and D are drawn from `rng` unless given; the EMA copies
-    are distinct modules."""
-    if tcfg.bf16:
-        raise NotImplementedError("bf16=True: the bf16 phases are not ported yet")
+    are distinct modules.  `tcfg.bf16` changes no part of the state: it
+    stays f32, as rick_tpu's (the phases cast where they compute)."""
     if g is None:
         g = Generator(
             gcfg.size, gcfg.style_dim, gcfg.n_mlp, gcfg.channel_multiplier, gcfg.blur_kernel,

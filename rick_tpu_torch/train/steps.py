@@ -22,6 +22,12 @@ the path phase has no augment, as in JAX.
 Warmup (`i < warmup_iter`): D steps only `final*`, G does not step (its loss
 is still computed), and the path phase does not run.  Adam's per-param step
 counts advance only for the params that step (`train/adam.py`).
+
+With `tcfg.bf16`, the D and G phases run G and D with the compute dtype
+bf16 (`compute_dtype`), as rick_tpu's `make_train_step`: G's image and D's
+scores come back f32 (both promote after their first layer) and are cast to
+f32 before ADA and the losses all the same.  Params, gradients, Adam, the
+EMA, ADA, R1 and path length stay f32.
 """
 
 from __future__ import annotations
@@ -142,12 +148,17 @@ def ema(ema_module: torch.nn.Module, module: torch.nn.Module, accum: float) -> N
     torch._foreach_add_(e, list(module.state_dict().values()), alpha=1.0 - accum)
 
 
+def compute_dtype(tcfg: TrainConfig) -> torch.dtype:
+    """The D and G phases' compute dtype: bf16 with `tcfg.bf16`, else f32."""
+    return torch.bfloat16 if tcfg.bf16 else torch.float32
+
+
 def _latent(g, draws: Draws) -> torch.Tensor:
     return g.make_latent([draws.z1, draws.z2], inject_index=draws.inject_index)
 
 
-def _fake(g, latent: torch.Tensor, draws: Draws) -> torch.Tensor:
-    return g([latent], input_is_latent=True, noise=draws.noise)[0]
+def _fake(g, latent: torch.Tensor, draws: Draws, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return g([latent], input_is_latent=True, noise=draws.noise, dtype=dtype)[0]
 
 
 def _augment(tcfg: TrainConfig, img: torch.Tensor, p: torch.Tensor, draws: Draws) -> torch.Tensor:
@@ -160,14 +171,16 @@ def d_phase(state: TrainState, tcfg: TrainConfig, real_img: torch.Tensor, draws:
     """D step on real_img and a fake batch, with augment both through one
     ADA call at the state's p, then (adaptive p) the p update.  Returns
     (metrics, the reals the R1 phase takes: the augmented ones)."""
+    cdt = compute_dtype(tcfg)
     with torch.no_grad():
-        fake = _fake(state.g, _latent(state.g, draws), draws)
+        fake = _fake(state.g, _latent(state.g, draws), draws, cdt).float()
         real_aug, fake_aug = real_img, fake
         if tcfg.augment:
             both = _augment(tcfg, torch.cat([real_img, fake]), state.ada_p, draws)
             real_aug, fake_aug = both[: real_img.shape[0]], both[real_img.shape[0]:]
-    fake_pred, _ = state.d(fake_aug)
-    real_pred, _ = state.d(real_aug)
+    fake_pred, _ = state.d(fake_aug, dtype=cdt)
+    real_pred, _ = state.d(real_aug, dtype=cdt)
+    real_pred, fake_pred = real_pred.float(), fake_pred.float()
     loss = d_logistic_loss(real_pred, fake_pred)
     _d_step(state, loss, warmup)
     if tcfg.augment and tcfg.augment_p == 0:
@@ -198,12 +211,13 @@ def g_phase(state: TrainState, tcfg: TrainConfig, draws: Draws, warmup: bool, do
     """G step on the non-saturating loss, with augment through the ADA warp
     at the state's p; with `do_ema`, the iteration's EMA of G and D.
     Returns the loss."""
+    cdt = compute_dtype(tcfg)
     with torch.set_grad_enabled(not warmup):
-        fake = _fake(state.g, _latent(state.g, draws), draws)
+        fake = _fake(state.g, _latent(state.g, draws), draws, cdt).float()  # ADA and D take f32
         if tcfg.augment:
             fake = _augment(tcfg, fake, state.ada_p, draws)
-        pred, _ = state.d(fake)
-        loss = g_nonsaturating_loss(pred)
+        pred, _ = state.d(fake, dtype=cdt)
+        loss = g_nonsaturating_loss(pred.float())
     _g_step(state, loss, warmup)
     if do_ema:
         ema(state.g_ema, state.g, tcfg.ema_accum)

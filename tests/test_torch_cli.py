@@ -35,7 +35,7 @@ def test_flags_are_rick_tpus():
     assert _spec(train.build_parser()) == _spec(j_train.build_parser())
 
 
-@pytest.mark.parametrize("flags", [["--bf16"], ["--n_devices", "2"], ["WORLD_SIZE=2"]])
+@pytest.mark.parametrize("flags", [["--n_devices", "2"], ["WORLD_SIZE=2"]])
 def test_unported_flags_raise_before_any_work(flags, tmp_path, monkeypatch):
     if flags == ["WORLD_SIZE=2"]:
         monkeypatch.setenv("WORLD_SIZE", "2")
@@ -93,6 +93,21 @@ def test_cli_runs_with_ada_on_the_cpu(tmp_path, capsys):
     assert [r["ada_p"] for r in recs] == [0.5]
     assert all(math.isfinite(v) for v in recs[0].values())
     assert "augment: 0.5000" in capsys.readouterr().out
+
+
+def test_cli_runs_with_bf16_on_the_cpu(tmp_path):
+    """--bf16 (the D and G phases' compute dtype) at 16px: the run reaches
+    its end with finite losses and records the flag in args.txt."""
+    chip_smoke.write_synthetic_store(str(tmp_path), SIZE, 10, 4)
+    flags = chip_smoke.cli_flags(str(tmp_path)) + [
+        "--size", str(SIZE), "--batch", "2", "--num_fisher_img", "2", "--allow_random_fisher_noise",
+        "--warmup_iter", "2", "--fisher_freq", "100", "--iter", "0", "--bf16",
+    ]
+    summary = train.main(flags, device="cpu")
+    assert (summary["iterations"], summary["fisher_rounds"]) == (11, 1)
+    recs = [json.loads(line) for line in (tmp_path / "out" / "cli" / "stats.jsonl").read_text().splitlines()]
+    assert recs and all(math.isfinite(v) for r in recs for v in r.values() if isinstance(v, float))
+    assert "bf16 : True" in (tmp_path / "out" / "cli" / "args.txt").read_text().splitlines()
 
 
 class _Stop(Exception):

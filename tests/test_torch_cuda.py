@@ -154,6 +154,75 @@ def test_kernels_raise_under_autograd_and_on_bad_input(cuda):
         ops.fused_bias_act_bwd(x.detach(), x.detach(), torch.zeros(5, device=cuda))
 
 
+@pytest.mark.parametrize("shape", [(2, 128, 64, 64), (4, 32), (3, 5, 7, 9)])
+def test_fused_bias_act_bf16_kernel_and_grads_match_plain(cuda, shape):
+    """K1's bf16 instantiation (bf16 x, f32 bias, f32 y) against its plain
+    version: y exactly the same arithmetic (1e-6); through autograd gx bf16
+    (K2's f32 result rounded once) and gb f32.  K2 applies the slope before
+    the gain, plain autograd after it: an f32 ulp that the rounding may
+    carry to one bf16 step (2^-8) of gx; gb, an f32 sum in another order,
+    1e-5."""
+    c = shape[-1] if len(shape) == 2 else shape[1]
+    x = _rand(shape, 0, device=cuda).bfloat16().requires_grad_(True)
+    b = _rand((c,), 1, 0.3, device=cuda).requires_grad_(True)
+    w = _rand(shape, 2, device=cuda)
+    before, before_f32 = ops.fused_bias_act.launches_bf16, ops.fused_bias_act.launches
+    y = ops.fused_bias_act(x, b)
+    assert (ops.fused_bias_act.launches_bf16, ops.fused_bias_act.launches) == (before + 1, before_f32)
+    ref = ops.fused_bias_act_ref(x, b)
+    assert y.dtype == ref.dtype == torch.float32 and _rel(y, ref) <= 1e-6
+    got = torch.autograd.grad(y, (x, b), w)
+    want = torch.autograd.grad(ref, (x, b), w)
+    assert [g.dtype for g in got] == [torch.bfloat16, torch.float32]
+    assert _rel(got[0].float(), want[0].float()) <= 2.0**-8 and _rel(got[1], want[1]) <= 1e-5
+
+
+@pytest.mark.parametrize("shape", [(2, 512, 4, 4), (2, 6, 5, 5)])
+@pytest.mark.parametrize("noise_batch", ["B", "1"])
+def test_modconv_epilogue_bf16_kernel_and_grads_match_plain(cuda, shape, noise_batch):
+    """K3's bf16 instantiation (bf16 out, demod, noise and noise weight, f32
+    bias, f32 y) against its plain version: the same roundings, 1e-6 of
+    max|ref|; through autograd the bf16 operands' grads bf16 and the bias's
+    f32.  d_out one bf16 step (2^-8) of max|ref| (K2 and plain autograd
+    apply slope and gain in another order), the bf16 sums over a layer
+    (demod, noise) four steps, the noise weight's, one sum that cancels to a
+    small part of its terms, 5e-2 (chip_smoke.py's rule for one-element
+    params), the bias's 1e-5."""
+    B, C, H, W = shape
+    a = [_rand(shape, 0, device=cuda).bfloat16(), (_rand((B, C), 1, device=cuda).abs() + 0.1).bfloat16(),
+         _rand((B if noise_batch == "B" else 1, 1, H, W), 2, device=cuda).bfloat16(),
+         torch.tensor([0.7], device=cuda).bfloat16(), _rand((C,), 3, 0.3, device=cuda)]
+    a = [t.requires_grad_(True) for t in a]
+    w = _rand(shape, 4, device=cuda)
+    before, before_f32 = ops.modconv_epilogue.launches_bf16, ops.modconv_epilogue.launches
+    y = ops.modconv_epilogue(*a)
+    assert (ops.modconv_epilogue.launches_bf16, ops.modconv_epilogue.launches) == (before + 1, before_f32)
+    ref = ops.modconv_epilogue_ref(*a)
+    assert y.dtype == ref.dtype == torch.float32 and _rel(y, ref) <= 1e-6
+    got, want = torch.autograd.grad(y, a, w), torch.autograd.grad(ref, a, w)
+    assert [g.dtype for g in got] == [torch.bfloat16] * 4 + [torch.float32]
+    for g_, r, tol in zip(got, want, [2.0**-8, 4 * 2.0**-8, 4 * 2.0**-8, 5e-2, 1e-5]):
+        assert _rel(g_.float(), r.float()) <= tol
+
+
+def test_kernels_refuse_other_dtypes(cuda):
+    """fp16, or a bias that is not f32, raises: neither instantiation takes it."""
+    x = torch.randn((2, 4, 3, 3), device=cuda)
+    b = torch.zeros(4, device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        ops.fused_bias_act(x.half(), b)
+    with pytest.raises(ValueError, match="bias"):
+        ops.fused_bias_act(x.bfloat16(), b.bfloat16())
+    epi = [x.bfloat16(), torch.ones((2, 4), device=cuda).bfloat16(), torch.zeros((1, 1, 3, 3), device=cuda).bfloat16(),
+           torch.ones(1, device=cuda).bfloat16(), b]
+    with pytest.raises(ValueError, match="dtype"):
+        ops.modconv_epilogue(*[t.half() if t.dtype == torch.bfloat16 else t for t in epi])
+    with pytest.raises(ValueError, match="demod"):
+        ops.modconv_epilogue(epi[0], epi[1].float(), *epi[2:])
+    with pytest.raises(ValueError, match="bias"):
+        ops.modconv_epilogue(*epi[:4], b.bfloat16())
+
+
 def test_small_generator_and_discriminator_match_the_cpu_path(cuda):
     """G (fixed and mixing) and D at 32px, on the card through the kernels
     and on the CPU through the plain versions: 1e-4 of max|ref|."""

@@ -160,9 +160,10 @@ def test_generate_returns_host_images_in_store_chunks(setup):
 
 
 def test_unported_options_raise(setup):
-    """The sharded evaluation and a non-f32 generation still raise; P&R and
-    intra-LPIPS are ported (tests/test_torch_scores.py)."""
+    """The sharded evaluation still raises; P&R and intra-LPIPS are ported
+    (tests/test_torch_scores.py), and so is a bf16 generation
+    (tests/test_torch_bf16.py)."""
     s = setup
-    for over in (dict(mesh=object()), dict(gen_dtype=torch.bfloat16)):
-        with pytest.raises(NotImplementedError):
-            Evaluator(s["gcfg"], fid_real_samples=s["real"], **_kw(s, **over))
+    with pytest.raises(NotImplementedError):
+        Evaluator(s["gcfg"], fid_real_samples=s["real"], **_kw(s, mesh=object()))
+    assert Evaluator(s["gcfg"], fid_real_samples=s["real"], **_kw(s, gen_dtype=torch.bfloat16)).gen_dtype == torch.bfloat16

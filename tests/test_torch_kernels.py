@@ -315,7 +315,8 @@ def test_build_command_names_every_source_and_the_hopper_target():
     assert out.parent == _build.BUILD_DIR and out.parent.name == "rick_tpu_torch"
     assert out == _build.build_path()  # the name depends on the sources only
     assert set(_build.SIGNATURES) == {
-        "rick_fused_bias_act", "rick_fused_bias_act_bwd", "rick_modconv_epilogue", "rick_convt_blur_act_stage",
+        "rick_fused_bias_act", "rick_fused_bias_act_bf16", "rick_fused_bias_act_bwd", "rick_modconv_epilogue",
+        "rick_modconv_epilogue_bf16", "rick_convt_blur_act_stage",
     }
 
 

@@ -464,8 +464,9 @@ def test_run_iteration_matches_jax(jax_train, i):
 
 
 def test_init_train_state_refuses_what_is_not_ported():
-    """bf16 is not ported; augment is, and starts at p = augment_p (0 for
-    the adaptive p), as rick_tpu's state."""
+    """augment starts at p = augment_p (0 for the adaptive p), as rick_tpu's
+    state; bf16 is the phases' compute dtype, so a bf16 state is the f32
+    state (f32 params, the same values from the same seed)."""
     from rick_tpu_torch.train import init_train_state
 
     rng = torch.Generator().manual_seed(0)
@@ -475,5 +476,9 @@ def test_init_train_state_refuses_what_is_not_ported():
         want = j_init_train_state(jax.random.key(0), JG, JD, JTrainConfig(augment=True, augment_p=augment_p))
         assert float(state.ada_p) == np.float32(augment_p) == float(want["ada_p"])
         assert not state.ada_stats.any() and float(state.r_t) == 0.0
-    with pytest.raises(NotImplementedError, match="bf16"):
-        init_train_state(PG, PD, TrainConfig(augment=False, bf16=True), rng=rng, device="cpu")
+    states = [init_train_state(PG, PD, TrainConfig(augment=False, bf16=bf16), rng=torch.Generator().manual_seed(1),
+                               device="cpu") for bf16 in (False, True)]
+    for name in ("g", "d", "g_ema", "d_ema"):
+        a, b = (getattr(s, name).state_dict() for s in states)
+        assert a.keys() == b.keys()
+        assert all(b[k].dtype == torch.float32 and torch.equal(a[k], b[k]) for k in a), name
