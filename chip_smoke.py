@@ -101,6 +101,21 @@ Phases, each raising on failure:
      alternated on one state; (e) `Evaluator(gen_dtype=bf16)` on one chunk
      of 100 against phase 11's f32 one (launches, time, FID@100); (f) the
      train CLI with --bf16 on phase 14's store (iterations 0-10, FID@100)
+ 18. data-parallel over torch.distributed: (a) phase 14's first CLI run again
+     under `torchrun --nproc_per_node 1` (NCCL, world 1): its metrics per
+     iteration (phase 8's loss tolerance) and its checkpoint of step 15 per
+     tensor in norm (phase 8's rule, the steps from the seeded state both
+     start from) against phase 14's; (b) two ranks on the one card over
+     gloo (asked for explicitly; NCCL refuses two ranks on one device),
+     started here: iterations 0 and 16 from phase 7's state at global batch
+     2, one image per rank, each held to one process on the card as phase 8
+     holds the card to the CPU, the two ranks' states bitwise equal; a
+     Fisher accumulation of 4 images sharded 2 per rank against the
+     unsharded one; a sharded FID@1000 of phase 11's g_ema against one
+     process's mu, cov and FID within 1e-3 (K4/K3/K1 6/7/8 per chunk); the
+    draws of 120 samples at gen_batch 14, chunks of 15 per rank against 12
+    in one process, each rank's rows bitwise one process's.
+     Two ranks share one card here: a correctness run, not a multi-GPU speed
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -110,15 +125,20 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import hashlib
 import io
 import json
 import math
 import os
+import queue
 import re
+import shutil
+import socket
 import subprocess
 import sys
 import tempfile
 import time
+import traceback
 from pathlib import Path
 
 import numpy as np
@@ -132,6 +152,7 @@ from rick_tpu_torch.cli import kid as kid_cli
 from rick_tpu_torch.cli import precision_recall as pr_cli
 from rick_tpu_torch.cli import train as train_cli
 from rick_tpu_torch.data import RecordStoreWriter, decode_png, encode_png
+from rick_tpu_torch.dist import initialize_multihost, local_rows
 from rick_tpu_torch.metrics import (
     Evaluator,
     IntraLPIPS,
@@ -715,6 +736,38 @@ def phase_runs(tcfg: TrainConfig, gcfg: GeneratorConfig, cpu_gen: torch.Generato
     ]
 
 
+def held_to(label, start, got, want, tcfg, models, trained, step_tol: float = STEP_TOL,
+            v_tol: float = V_TOL) -> dict:
+    """Phase 8's rule: for each of `models`, the step each param of `got`
+    took from `start` against the step `want` took, per tensor in norm
+    (`by_tensor`, STEP_ATOL for the steps that are themselves near zero),
+    and Adam's second moment of `trained` ((model, predicate)) per tensor
+    in norm.  Raises past the tolerances; returns the worst ratio to the
+    allowance of each, with its tensor."""
+    worst = {"step": (0.0, ""), "v": (0.0, "")}
+    for model in models:
+        begin = by_tensor(dict(getattr(start, model).named_parameters()))
+        ref = by_tensor(dict(getattr(want, model).named_parameters()))
+        cur = by_tensor(dict(getattr(got, model).named_parameters()))
+        lr = tcfg.d_lr if model[0] == "d" else tcfg.g_lr
+        lr = lr * (1.0 - tcfg.ema_accum) if model.endswith("_ema") else lr
+        for k in begin:
+            step_ref, step_got = ref[k] - begin[k], cur[k] - begin[k]
+            diff, size = float((step_got - step_ref).norm()), float(step_ref.norm())
+            allowed = tol(k, step_tol) * size + STEP_ATOL * lr * math.sqrt(step_ref.numel())
+            worst["step"] = max(worst["step"], (diff / allowed, f"{model}.{k}"))
+            require(diff <= allowed, f"{label}: the step of {model}.{k} differs by {diff:.3e} "
+                                     f"(|step| {size:.3e}; allowed {allowed:.3e})")
+    opt = trained[0] + "_opt"
+    v_ref = by_tensor(exp_avg_sq(getattr(want, opt), trainable_params(getattr(want, trained[0]), trained[1])))
+    v_got = by_tensor(exp_avg_sq(getattr(got, opt), trainable_params(getattr(got, trained[0]), trained[1])))
+    for k in v_ref:
+        e = norm_err(v_got[k], v_ref[k])
+        worst["v"] = max(worst["v"], (e / tol(k, v_tol), k))
+        require(e <= tol(k, v_tol), f"{label}: exp_avg_sq of {k} differs by {e:.3e}")
+    return worst
+
+
 def train_vs_plain(state, tcfg, phases=("d", "r1", "g", "path"), fims: bool = True, step_tol: float = STEP_TOL,
                    v_tol: float = V_TOL) -> dict:
     """From the same state and draws, each of `phases` on the card and on
@@ -740,27 +793,8 @@ def train_vs_plain(state, tcfg, phases=("d", "r1", "g", "path"), fims: bool = Tr
             worst["loss"] = max(worst["loss"], (e, ""))
             require(e <= LOSS_TOL, f"{name} phase: loss {float(a)} vs {float(b)} ({e:.3e} > {LOSS_TOL})")
         trained = ("d", d_trainable) if name in ("d", "r1") else ("g", g_trainable)
-        for model in ("g", "g_ema", "d_ema") if name in ("g", "path") else ("d",):
-            start = by_tensor(dict(getattr(base_cpu, model).named_parameters()))
-            cur = by_tensor(dict(getattr(on_cpu, model).named_parameters()))
-            card = by_tensor(dict(getattr(on_card, model).named_parameters()))
-            lr = tcfg.d_lr if model[0] == "d" else tcfg.g_lr
-            lr = lr * (1.0 - tcfg.ema_accum) if model.endswith("_ema") else lr
-            for k in start:
-                step_cpu, step_card = cur[k] - start[k], card[k] - start[k]
-                diff, ref = float((step_card - step_cpu).norm()), float(step_cpu.norm())
-                allowed = tol(k, step_tol) * ref + STEP_ATOL * lr * math.sqrt(step_cpu.numel())
-                worst["step"] = max(worst["step"], (diff / allowed, f"{model}.{k}"))
-                require(diff <= allowed, f"{name} phase: the step of {model}.{k} differs by {diff:.3e} "
-                                         f"(|step| {ref:.3e}; allowed {allowed:.3e})")
-        opt = trained[0] + "_opt"
-        v_cpu = by_tensor(exp_avg_sq(getattr(on_cpu, opt), trainable_params(getattr(on_cpu, trained[0]), trained[1])))
-        v_card = by_tensor(exp_avg_sq(getattr(on_card, opt),
-                                      trainable_params(getattr(on_card, trained[0]), trained[1])))
-        for k in v_cpu:
-            e = norm_err(v_card[k], v_cpu[k])
-            worst["v"] = max(worst["v"], (e / tol(k, v_tol), k))
-            require(e <= tol(k, v_tol), f"{name} phase: exp_avg_sq of {k} differs by {e:.3e}")
+        models = ("g", "g_ema", "d_ema") if name in ("g", "path") else ("d",)
+        worst.update(held_to(f"{name} phase", base_cpu, on_card, on_cpu, tcfg, models, trained, step_tol, v_tol))
         ada = ""
         if tcfg.augment:
             for k in ("ada_p", "ada_stats", "r_t"):
@@ -1155,9 +1189,11 @@ class SectionTimer:
         return out
 
 
-def cli_phase(card: str, root: str) -> dict:
+def cli_phase(card: str, root: str) -> tuple:
     """Phase 14, on a store it writes under `root`; returns the launches of
-    the two runs."""
+    the two runs, and the first run's metrics per iteration with a copy of
+    its checkpoint of CLI_CKPT_STEP (the resumed run writes that step again),
+    which phase 18 (a) is held to."""
     t0 = time.perf_counter()
     write_synthetic_store(root, SIZE, 10, CLI_N_TEST)
     print(f"  synthetic store: 10 train + {CLI_N_TEST} test PNGs at {SIZE}px in {time.perf_counter() - t0:.1f} s",
@@ -1171,10 +1207,16 @@ def cli_phase(card: str, root: str) -> dict:
                              ("resumed", ["--iter", str(CLI_RESUME_ITERS), "--auto_resume"])):
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            runs[label] = train_cli.main(flags + extra)
+            with recorded_metrics() as metrics:
+                runs[label] = train_cli.main(flags + extra)
             torch.cuda.synchronize()
             runs[label].update(wall_s=time.perf_counter() - t0, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                                sections=timer.take())
+            if label == "first":
+                first = {"metrics": [{k: float(v) for k, v in m.items()} for m in metrics],
+                         "ckpt": os.path.join(root, f"first_{CLI_CKPT_STEP:06d}.state.npz")}
+                shutil.copy(os.path.join(root, "out", "cli", "checkpoints", f"{CLI_CKPT_STEP:06d}.state.npz"),
+                            first["ckpt"])
     counts = launch_counts()
     print(f"  launches in the two CLI runs: {counts}", flush=True)
     for label, r in runs.items():
@@ -1195,7 +1237,22 @@ def cli_phase(card: str, root: str) -> dict:
           f"{CLI_CKPT_STEP:06d}.pt vs .state.npz g_ema {got['ckpt_rel']:.3e} of max|ref|; "
           f"{got['n_arrays']} arrays re-saved bitwise; {got['pngs']} PNGs decoded", flush=True)
     require(all(counts[k] > 0 for k in SOURCES), f"a kernel did not launch in the CLI runs: {counts}")
-    return counts
+    return counts, first
+
+
+@contextlib.contextmanager
+def recorded_metrics():
+    """The metrics (device tensors) of every `run_iteration` the train CLI
+    calls inside the block, in order."""
+    out, inner = [], train_cli.run_iteration
+
+    def recording(*args, **kwargs):
+        out.append(inner(*args, **kwargs))
+        return out[-1]
+
+    train_cli.run_iteration = recording
+    yield out
+    train_cli.run_iteration = inner
 
 
 # ---------------------------------------------------------------------------
@@ -1673,6 +1730,21 @@ def bf16_kernel_cases(gen: torch.Generator):
     return main, streaming
 
 
+def device_ms(fn, kernel: str, iters: int = 20) -> float:
+    """Mean device time per call of fn of the CUDA kernels whose name holds
+    `kernel`, under torch.profiler (the wrapper's host time left out)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.device_time_total for e in prof.key_averages() if kernel in e.key)
+    require(total_us > 0, f"the profiler shows no device time of {kernel}")
+    return total_us / iters / 1000.0
+
+
 def bf16_autograd() -> dict:
     """First grads through the bf16 instantiations against plain autograd of
     their plain versions, at their main-path shapes: dtypes, then values
@@ -1832,6 +1904,12 @@ def bf16_phase(g_ema, ev, incp, root: str, card: str) -> tuple:
     main_cases, streaming = bf16_kernel_cases(torch.Generator(device=DEV).manual_seed(88))
     per_kernel = run_cases(main_cases)
     run_cases(streaming)
+    k3 = per_kernel["modconv_epilogue_bf16"]
+    with torch.inference_mode():
+        k3["device_ms"] = device_ms(next(c["kern"] for c in main_cases if c["label"] == k3["shape"]), "epi_rows")
+    print(f"  modconv_epilogue_bf16 {k3['shape']}: device time {k3['device_ms']:.5f} ms (torch.profiler) against "
+          f"{k3['ms']:.4f} ms by CUDA events (the wrapper's host time) and a bound of {k3['bound_ms']:.1e} ms, "
+          "below a launch's latency", flush=True)
     grad_err = bf16_autograd()
     print(f"  grads vs plain autograd, max abs err: {grad_err}", flush=True)
     for name, err in grad_err.items():
@@ -1848,6 +1926,281 @@ def bf16_phase(g_ema, ev, incp, root: str, card: str) -> tuple:
     print("  (f) train CLI with --bf16: 256px batch 2, iterations 0-10, FID@100", flush=True)
     cli_counts = bf16_cli_run(card, root)
     return per_kernel, {"bf16_training": train_counts, "bf16_eval": eval_counts, "bf16_cli": cli_counts}
+
+
+# ---------------------------------------------------------------------------
+# phase 18: data-parallel runs over torch.distributed
+# ---------------------------------------------------------------------------
+
+DP_LABEL = "two ranks sharing one card: a correctness run, not a multi-GPU speed"
+DP_ITERS = (0, 16)  # from phase 7's state: warmup with R1; every phase (the path batch of 1 whole on each rank)
+DP_FISHER_N = 4  # images, 2 per rank
+DP_EVAL_N = 1000
+DP_EVAL_TOL = 1e-3  # sharded mu, cov (max|d| / max|ref|) and FID (relative) against one process
+DP_DRAWS = (120, 14, 15, 12)  # samples, gen_batch: chunks of 15 per rank of 2, of 12 in one process
+
+
+def state_digest(*trees) -> str:
+    """sha256 of every tensor of the TrainStates and {name: tensor} dicts
+    given, in order (bitwise equality across ranks)."""
+    h = hashlib.sha256()
+    for tree in trees:
+        tensors = tree if isinstance(tree, dict) else {
+            **{f"{m}.{k}": v for m in ("g", "d", "g_ema", "d_ema") for k, v in getattr(tree, m).state_dict().items()},
+            **{f"{o}.{i}.{k}": v for o in ("g_opt", "d_opt") for i, st in enumerate(getattr(tree, o).state.values())
+               for k, v in st.items()},
+            **{k: getattr(tree, k) for k in ("mean_path_length", "ada_p", "ada_stats", "r_t")}}
+        for k in sorted(tensors):
+            h.update(k.encode())
+            h.update(tensors[k].detach().cpu().contiguous().view(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_cli_rank(out_json: str, flags: list) -> None:
+    """Phase 18 (a), as the rank torchrun starts: the train CLI with
+    `flags` and cuDNN's deterministic algorithms, its metrics per iteration
+    and its launches written by rank 0 to `out_json`."""
+    torch.backends.cudnn.deterministic = True
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with recorded_metrics() as metrics:
+        summary = train_cli.main(flags)
+    torch.cuda.synchronize()
+    if int(os.environ.get("RANK", "0")) == 0:
+        with open(out_json, "w") as f:
+            json.dump({"metrics": [{k: float(v) for k, v in m.items()} for m in metrics], "counts": bf16_counts(),
+                       "summary": summary}, f)
+
+
+def metric_errors(got: list, want: list) -> dict:
+    """{metric: [relative error at each iteration]} of two runs' metrics."""
+    return {k: [abs(a[k] - b[k]) / max(abs(b[k]), 1e-6) for a, b in zip(got, want)] for k in want[0]}
+
+
+def dp_cli(root: str, first: dict, card: str) -> dict:
+    """(a) Phase 14's first run (store and flags) under `torchrun
+    --nproc_per_node 1` (NCCL, world 1), held to the same run in this
+    process without a process group, both with cuDNN's deterministic
+    algorithms: phase 14's own run is not repeatable on the card (cuDNN's
+    default algorithms round otherwise from run to run, and the GAN and
+    the Fisher cutlines amplify that to percents within 20 iterations; its
+    distance to both is printed).  Its metrics per iteration at phase 8's
+    loss tolerance, and its checkpoint of CLI_CKPT_STEP per tensor in norm
+    by phase 8's rule for a step (from the seeded state both start from).
+    Returns the torchrun run's launches."""
+    flags = cli_flags(root) + CLI_FLAGS + ["--iter", str(CLI_ITERS), "--exp"]  # the last --exp is the run's
+    torch.cuda.synchronize()
+    torch.backends.cudnn.deterministic = True
+    t0 = time.perf_counter()
+    with recorded_metrics() as metrics:
+        train_cli.main(flags + ["dp_ref"])
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    torch.backends.cudnn.deterministic = False
+    ref = [{k: float(v) for k, v in m.items()} for m in metrics]
+    out_json = os.path.join(root, "dp_cli.json")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+           os.path.abspath(__file__), "--dp-cli", out_json, *flags, "dp_cli"]
+    t0 = time.perf_counter()
+    subprocess.run(cmd, check=True, timeout=900)
+    wall = time.perf_counter() - t0
+    got = json.loads(Path(out_json).read_text())["metrics"]
+    require(len(got) == len(ref) == len(first["metrics"]), "the runs ran other iterations")
+    errs = metric_errors(got, ref)
+    worst_m = max(max(v) for v in errs.values())
+    diff_m = max(abs(a[k] - b[k]) for a, b in zip(got, ref) for k in b)
+    require(worst_m <= LOSS_TOL, f"torchrun run vs one process: metrics part by {worst_m:.3e} > {LOSS_TOL}: {errs}")
+    spread = metric_errors(ref, first["metrics"])
+    gcfg, dcfg = GeneratorConfig(SIZE), DiscriminatorConfig(SIZE)
+    tcfg = TrainConfig(batch=2, augment=False, warmup_iter=4)
+    ckpt = f"{CLI_CKPT_STEP:06d}.state.npz"
+    states = [train_state_from_jax(gcfg, dcfg, load_state(os.path.join(root, "out", run, "checkpoints", ckpt))[0],
+                                   tcfg=tcfg, device=DEV) for run in ("dp_cli", "dp_ref")]
+    wgen = torch.Generator(device=DEV).manual_seed(1)  # the CLI's init: --seed 1, no source checkpoint
+    start = init_train_state(gcfg, dcfg, tcfg, rng=wgen, device=DEV, g=Generator(SIZE, rng=wgen, device=DEV),
+                             d=Discriminator(SIZE, rng=wgen, device=DEV))
+    wd = held_to("torchrun run", start, states[0], states[1], tcfg, ("d",), ("d", d_trainable))
+    wg = held_to("torchrun run", start, states[0], states[1], tcfg, ("g", "g_ema", "d_ema"), ("g", g_trainable))
+    diff_s = max(float((a - b).abs().max()) for m in ("g", "d", "g_ema", "d_ema")
+                 for a, b in zip(*(getattr(st, m).state_dict().values() for st in states)))
+    counts = json.loads(Path(out_json).read_text())["counts"]
+    print(f"  (a) torchrun --nproc_per_node 1 (NCCL, world 1) vs one process, phase 14's first run, cuDNN "
+          f"deterministic: {len(got)} iterations, metrics within {worst_m:.2e} relative (largest difference "
+          f"{diff_m:.3e}); {ckpt}: largest difference {diff_s:.3e}, worst step error / allowed "
+          f"{max(wd['step'], wg['step'])[0]:.2e}, exp_avg_sq {max(wd['v'], wg['v'])[0]:.2e}"
+          + ("; bitwise equal" if diff_m == 0.0 and diff_s == 0.0 else "") + f"; {wall:.1f} s with the launch "
+          f"({DP_LABEL}), the run in this process {ref_s:.1f} s [{card}]; launches {counts}", flush=True)
+    print("  (a) phase 14's first run (cuDNN's default algorithms) against the deterministic one, relative, by "
+          "iteration: " + "; ".join(f"{k} {' '.join(f'{e:.0e}' for e in v)}" for k, v in spread.items()
+                                    if k in ("d", "g", "r1", "path")), flush=True)
+    require(all(counts[k] > 0 for k in SOURCES), f"a kernel did not launch in the torchrun run: {counts}")
+    return counts
+
+
+def dp_rank(rank: int, world: int, port: int, files: dict, q) -> None:
+    """Phase 18 (b): one of two ranks on the one card over gloo (asked for
+    explicitly: NCCL refuses two ranks on one device)."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        group, dev = initialize_multihost(DEV, backend="gloo")
+        q.put((rank, dp_work(rank, group, dev, files)))
+        torch.distributed.destroy_process_group()
+    except BaseException:  # noqa: BLE001 - the parent raises with it
+        q.put((rank, traceback.format_exc()))
+
+
+def dp_work(rank: int, group, dev, files: dict) -> dict:
+    """The phases, the Fisher accumulation and the evaluation on 2 ranks;
+    on rank 0 each also by one process on the card, and held to it."""
+    gcfg, dcfg = GeneratorConfig(SIZE), DiscriminatorConfig(SIZE)
+    tcfg = TrainConfig(batch=2, augment=False, warmup_iter=1)
+    base = train_state_from_jax(gcfg, dcfg, load_state(files["state"])[0], tcfg=tcfg, device=dev)
+    inputs = torch.load(files["inputs"], weights_only=False)
+    real = inputs["real"].to(dev)
+    out = {"metrics": [], "checks": []}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    states = []
+    for i, draws in inputs["cases"]:
+        state = copy.deepcopy(base)
+        m = run_iteration(state, tcfg, local_rows(real, group), i, draws={k: d.to(dev) for k, d in draws.items()},
+                          group=group)
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+        states.append(state)
+    noises, reals = inputs["fisher"][0].to(dev), inputs["fisher"][1].to(dev)
+    fims = accumulate_fims(base.g_ema, base.d_ema, noises, reals, batch=tcfg.batch, const_noise=True, group=group)
+    torch.cuda.synchronize()
+    out["phases_s"], out["phases_counts"] = time.perf_counter() - t0, bf16_counts()
+    out["digest"] = state_digest(*states, fims[0], fims[1])
+    if rank == 0:
+        for (i, draws), state, m in zip(inputs["cases"], states, out["metrics"]):
+            ref = copy.deepcopy(base)
+            want = run_iteration(ref, tcfg, real, i, draws={k: d.to(dev) for k, d in draws.items()})
+            loss = max(abs(m[k] - float(v)) / max(abs(float(v)), 1e-6) for k, v in want.items())
+            require(loss <= LOSS_TOL, f"2 ranks, iteration {i}: metrics {m} vs {want}")
+            wd = held_to(f"2 ranks, iteration {i}", base, state, ref, tcfg, ("d",), ("d", d_trainable))
+            wg = held_to(f"2 ranks, iteration {i}", base, state, ref, tcfg, ("g", "g_ema", "d_ema"), ("g", g_trainable))
+            out["checks"].append((i, loss, max(wd["step"], wg["step"]), max(wd["v"], wg["v"])))
+            del ref
+        want = accumulate_fims(base.g_ema, base.d_ema, noises, reals, batch=tcfg.batch, const_noise=True)
+        worst = (0.0, "")
+        for model, a, b in zip(("g_ema", "d_ema"), fims, want):
+            a, b = by_tensor(a), by_tensor(b)
+            for k in b:
+                e = norm_err(a[k], b[k])
+                worst = max(worst, (e / tol(k, FIM_TOL), f"{model}.{k}"))
+                require(e <= tol(k, FIM_TOL), f"2 ranks: the sharded FIM of {model}.{k} differs by {e:.3e}")
+        out["fims"] = worst
+    del states, base, fims
+
+    g_ema = Generator(SIZE, rng=torch.Generator(device=dev).manual_seed(0), device=dev).eval()
+    g_ema.load_state_dict(torch.load(files["g_ema"]))
+    kw = dict(fid_real_samples=np.zeros((1, 3, SIZE, SIZE), np.uint8), inception_nsamples=DP_EVAL_N,
+              batch_size=REAL_BATCH, gen_batch=GEN_BATCH, real_acts=np.load(files["real_acts"]), seed=0, device=dev,
+              inception_params=torch.load(files["incp"], weights_only=False))
+    ev = Evaluator(g_ema.cfg, group=group, **kw)
+    require(ev.group is not None and ev.n_chunks * ev.gen_batch * 2 == DP_EVAL_N,
+            "the sharded evaluation was not taken")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out["fid"] = ev.compute_inception_score(g_ema)["fid"]
+    torch.cuda.synchronize()
+    out["eval_s"], out["eval_counts"] = time.perf_counter() - t0, bf16_counts()
+    if rank == 0:
+        one = Evaluator(g_ema.cfg, **kw)
+        fid = one.compute_inception_score(g_ema)["fid"]
+        errs = [rel_err(a, b)[1] for a, b in zip(ev.last_stats, one.last_stats)] + [abs(out["fid"] - fid) / abs(fid)]
+        require(max(errs) <= DP_EVAL_TOL, f"2 ranks: the sharded evaluation's mu, cov, FID differ by {errs}")
+        out["eval_errs"], out["fid_one"] = errs, fid
+
+    # a chunk size that is not one process's: the draws alone, each rank's rows against one process's
+    n, gen_batch, per_rank, whole = DP_DRAWS
+    kw.update(inception_nsamples=n, gen_batch=gen_batch)
+    evs = Evaluator(g_ema.cfg, group=group, **kw), Evaluator(g_ema.cfg, **kw)
+    require((evs[0].gen_batch, evs[1].gen_batch) == (per_rank, whole), "the chunk sizes are not the ones planned")
+    draws = []
+    for e in evs:
+        zs, noises = zip(*e._chunk_draws(g_ema, 0))
+        draws.append([torch.cat(zs), *(torch.cat(ns) for ns in zip(*noises))])
+    rows = slice(rank * n // 2, (rank + 1) * n // 2)
+    require(len(draws[0]) == len(draws[1]) and all(torch.equal(a, b[rows]) for a, b in zip(*draws)),
+            f"rank {rank}: the draws at chunks of {per_rank} are not one process's at chunks of {whole}")
+    return out
+
+
+def dp_ranks(files: dict, card: str) -> dict:
+    """(b) Two ranks on the card over gloo, started here; returns the
+    launches of their runs (both ranks): the phases and the Fisher
+    accumulation, and the evaluation."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ctx = torch.multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=dp_rank, args=(r, 2, port, files, q)) for r in range(2)]
+    for p in procs:
+        p.start()
+    outs = {}
+    while len(outs) < len(procs) and time.perf_counter() - t0 < 900:
+        with contextlib.suppress(queue.Empty):
+            r, o = q.get(timeout=1.0)
+            outs[r] = o
+        if len(outs) < len(procs) and any(p.exitcode not in (None, 0) for p in procs):
+            break
+    for p in procs:
+        p.join(60)
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    wall = time.perf_counter() - t0
+    require(len(outs) == len(procs), f"a rank ended without a result: exit codes {[p.exitcode for p in procs]}")
+    for r, o in outs.items():
+        require(isinstance(o, dict), f"rank {r} failed:\n{o}")
+    a, b = outs[0], outs[1]
+    require(a["digest"] == b["digest"], "the two ranks' states or FIMs differ")
+    require(a["metrics"] == b["metrics"] and a["fid"] == b["fid"], "the two ranks returned other metrics or FIDs")
+    for i, loss, step, v in a["checks"]:
+        print(f"  (b) iteration {i}, global batch 2 (one image per rank) vs one process on the card: metrics within "
+              f"{loss:.2e} relative; worst error / allowed: step {step[0]:.2e} ({step[1]}), exp_avg_sq {v[0]:.2e} "
+              f"({v[1]}); the ranks' states bitwise equal", flush=True)
+    print(f"  (b) sharded Fisher accumulation, {DP_FISHER_N} images, 2 per rank, vs one process: worst error / allowed "
+          f"{a['fims'][0]:.2e} ({a['fims'][1]})", flush=True)
+    print(f"  (b) sharded evaluation, {DP_EVAL_N} samples, {GEN_BATCH} per chunk: FID {a['fid']:.6f} vs one process "
+          f"{a['fid_one']:.6f}; mu, cov, FID errors {['%.2e' % e for e in a['eval_errs']]} (tolerance {DP_EVAL_TOL})",
+          flush=True)
+    print(f"  (b) the draws of {DP_DRAWS[0]} samples at gen_batch {DP_DRAWS[1]}, chunks of {DP_DRAWS[2]} per rank "
+          f"against {DP_DRAWS[3]} in one process: latents and noise of each rank's rows bitwise equal", flush=True)
+    phases = {k: a["phases_counts"][k] + b["phases_counts"][k] for k in a["phases_counts"]}
+    evals = {k: a["eval_counts"][k] + b["eval_counts"][k] for k in a["eval_counts"]}
+    print(f"  (b) {wall:.1f} s in all, phases and Fisher {a['phases_s']:.2f} s, evaluation {a['eval_s']:.2f} s on "
+          f"rank 0 ({DP_LABEL}) [{card}]; launches, both ranks: phases and Fisher {phases}, evaluation {evals}",
+          flush=True)
+    per_chunk = {"convt_blur_act": 6, "modconv_epilogue": 7, "fused_bias_act": 8}
+    for name, k in per_chunk.items():
+        require(evals[name] == k * DP_EVAL_N // GEN_BATCH, f"{name} launched {evals[name]} times in the evaluation")
+    training = ("fused_bias_act", "fused_bias_act_bwd", "modconv_epilogue")
+    require(all(phases[k] > 0 for k in training), f"a training kernel did not launch on the ranks: {phases}")
+    return {"dp_phases": phases, "dp_eval": evals}
+
+
+def dp_inputs(path: str) -> None:
+    """The global real batch and draws of DP_ITERS, and the Fisher set, made
+    on the CPU and saved for the ranks."""
+    gen = torch.Generator().manual_seed(41)
+    tcfg = TrainConfig(batch=2, augment=False, warmup_iter=1)
+    gcfg = GeneratorConfig(SIZE)
+    cases = [(i, {"d": sample_draws(gen, gcfg, tcfg, 2), "g": sample_draws(gen, gcfg, tcfg, 2),
+                  "path": sample_draws(gen, gcfg, tcfg, 1, path=True)}) for i in DP_ITERS]
+    torch.save({"real": torch.randn((2, 3, SIZE, SIZE), generator=gen), "cases": cases,
+                "fisher": (torch.randn((DP_FISHER_N, tcfg.latent), generator=gen),
+                           torch.randn((DP_FISHER_N, 3, SIZE, SIZE), generator=gen))}, path)
 
 
 def main() -> int:
@@ -1904,6 +2257,11 @@ def main() -> int:
           "under the masks", flush=True)
     torch.cuda.reset_peak_memory_stats()
     state, tcfg, train_counts = train_slice(card)
+    dp_dir = tempfile.mkdtemp(prefix="chip_smoke_dp_")  # phase 18's inputs
+    dp_files = {k: os.path.join(dp_dir, f) for k, f in (("state", "phase7.state.npz"), ("inputs", "inputs.pt"),
+                                                          ("g_ema", "g_ema.pt"), ("incp", "incp.pt"),
+                                                          ("real_acts", "real_acts.npy"))}
+    save_state(dp_files["state"], train_state_to_jax(state), step=MASKED_ITER)
 
     print("[8] training slice vs plain (CPU) at 256px: each phase and a Fisher accumulation", flush=True)
     cpu_s = train_vs_plain(state, tcfg)
@@ -1934,7 +2292,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         print(f"[14] train CLI: 256px batch 2, --iter {CLI_ITERS}, then --iter {CLI_RESUME_ITERS} --auto_resume",
               flush=True)
-        cli_counts = cli_phase(card, root)
+        cli_counts, cli_first = cli_phase(card, root)
 
         print(f"[15] ADA: 256px, margin {ADA_MARGIN}", flush=True)
         t_ada = time.perf_counter()
@@ -1988,9 +2346,22 @@ def main() -> int:
         t_bf16 = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
         bf16_kernels, bf16_runs = bf16_phase(g_ema, ev, incp, root, card)
-        del g_ema, ev, real
         print(f"  phase 17: {time.perf_counter() - t_bf16:.1f} s; peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+        torch.save(g_ema.state_dict(), dp_files["g_ema"])
+        torch.save(incp, dp_files["incp"])
+        np.save(dp_files["real_acts"], ev._real_acts)
+        dp_inputs(dp_files["inputs"])
+        del g_ema, ev, real
+
+        print(f"[18] data-parallel over torch.distributed: (a) the train CLI under torchrun (NCCL, world 1) vs phase "
+              f"14; (b) two ranks on the one card over gloo: iterations {DP_ITERS} from phase 7's state, a sharded "
+              f"Fisher accumulation, a sharded FID@{DP_EVAL_N}", flush=True)
+        t_dp = time.perf_counter()
+        dp_runs = {"dp_cli": dp_cli(root, cli_first, card)}
+        dp_runs.update(dp_ranks(dp_files, card))
+        shutil.rmtree(dp_dir)
+        print(f"  phase 18: {time.perf_counter() - t_dp:.1f} s ({DP_LABEL})", flush=True)
     print(f"  chip_smoke total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = []
@@ -1998,7 +2369,7 @@ def main() -> int:
         k = per_kernel[name]
         by_run = {"generation": gen_counts[name], "training": train_counts[name], "eval": eval_counts[name],
                   "cli": cli_counts[name], "ada": ada_counts[name], "ada_cli": ada_cli_counts[name],
-                  "score": score_counts[name]}
+                  "score": score_counts[name], **{run: counts[name] for run, counts in dp_runs.items()}}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces, launches=sum(by_run.values()),
             max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
@@ -2007,11 +2378,12 @@ def main() -> int:
     kernels += k5["entries"]
     for name, (source, replaces) in BF16_SOURCES.items():
         k = bf16_kernels[name]
-        by_run = {run: counts[name] for run, counts in bf16_runs.items()}
+        by_run = {run: counts[name] for run, counts in {**bf16_runs, **dp_runs}.items()}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces, launches=sum(by_run.values()),
             max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], library_ms=None, shape=k["shape"], launches_by_run=by_run,
+            **({"device_ms": k["device_ms"]} if "device_ms" in k else {}),
         ))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -2021,4 +2393,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-cli"]:  # phase 18 (a): a rank that torchrun starts
+        dp_cli_rank(sys.argv[2], sys.argv[3:])
+        sys.exit(0)
     sys.exit(main())

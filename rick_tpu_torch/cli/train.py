@@ -3,9 +3,15 @@ flags of `rick_tpu.cli.train` (the reference's `train_dynamic_update_prune.py`
 flags plus rick_tpu's).  Port of `rick_tpu/cli/train.py`.
 
 It runs on the card; `main(argv, device="cpu")` runs the same loop on the
-CPU.  Flags whose path is not ported yet (`--n_devices` > 1, a multi-process
-launch) raise NotImplementedError before any work.  `--bf16` runs the D and
-G phases with the compute dtype bf16, as rick_tpu's (`train/steps.py`).
+CPU.  `--bf16` runs the D and G phases with the compute dtype bf16, as
+rick_tpu's (`train/steps.py`).
+
+Data-parallel: `torchrun --nproc_per_node N -m rick_tpu_torch.cli.train ...`
+runs one rank per card (NCCL; gloo on the CPU) over the global `--batch`:
+each rank trains on its rows with the gradients all-reduced, the Fisher
+images and the evaluation's samples are sharded, and rank 0 alone writes
+files, logs and grids (`dist/`, `train/steps.py`).  `--n_devices` must be 0
+(every rank) or the world size.
 TF32 is off for cuDNN and matmuls: f32 is the precision every parity check
 of the port holds.
 
@@ -18,6 +24,7 @@ so a run resumes across the two packages) with `{i:06d}.pt` (the reference's
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import functools
 import glob
@@ -41,6 +48,14 @@ from rick_tpu_torch.ckpt import (
 )
 from rick_tpu_torch.ckpt.async_io import AsyncSaver, Snapshot, atomic_write
 from rick_tpu_torch.data import ImageDataset, data_stream, device_data_stream, get_nsamples
+from rick_tpu_torch.dist import (
+    all_gather_rows,
+    initialize_multihost,
+    is_main_process,
+    launched_world_size,
+    local_batch_size,
+    rank,
+)
 from rick_tpu_torch.metrics import Evaluator
 from rick_tpu_torch.nn import Discriminator, DiscriminatorConfig, Generator, GeneratorConfig
 from rick_tpu_torch.train import (
@@ -48,6 +63,7 @@ from rick_tpu_torch.train import (
     fisher_round,
     init_train_state,
     merge_prune,
+    replicate_train_state,
     run_iteration,
     sample_images,
 )
@@ -127,18 +143,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", type=str, default="")
     p.add_argument("--auto_resume", action="store_true",
                    help="resume from the latest .state.npz in the checkpoint dir")
-    p.add_argument("--n_devices", type=int, default=0, help="0 = all local devices; the port runs one")
+    p.add_argument("--n_devices", type=int, default=0,
+                   help="0 = every rank of the launch (one per card, torchrun); else the world size")
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--profile_dir", type=str, default="", help="enable torch.profiler traces")
     return p
 
 
-def refuse_unported(args) -> None:
-    """Raise NotImplementedError for a flag whose path is not ported yet."""
-    if args.n_devices > 1:
-        raise NotImplementedError("--n_devices > 1: multi-GPU training is ROADMAP queue 1 item 13")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError("a multi-process launch (WORLD_SIZE > 1) is ROADMAP queue 1 item 13")
+def check_n_devices(args) -> None:
+    """`--n_devices` must be 0 or the launch's world size (one process per
+    card takes the place of rick_tpu's one process driving N devices)."""
+    world = launched_world_size() or 1
+    if args.n_devices not in (0, world):
+        raise ValueError(f"--n_devices {args.n_devices}: this launch has {world} rank(s); start N ranks with "
+                         "torchrun --nproc_per_node N, and pass 0 or N")
 
 
 def iteration_generator(device, seed: int, i: int, tag: int) -> torch.Generator:
@@ -149,7 +167,7 @@ def iteration_generator(device, seed: int, i: int, tag: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(s))
 
 
-def load_fisher_noises(noise_dir, num_fisher_img, latent, batch, *, allow_random=False):
+def load_fisher_noises(noise_dir, num_fisher_img, latent, batch, *, allow_random=False, log=print):
     """The fixed `_noise/{j:04d}.pt` Fisher latents: (noises (sum(rows),
     latent) float32, rows per file).  Every row of a file is one FIM
     sample, paired with a row of one real batch
@@ -181,7 +199,7 @@ def load_fisher_noises(noise_dir, num_fisher_img, latent, batch, *, allow_random
                 "silently diverges from it. Provide the files or pass --allow_random_fisher_noise to substitute "
                 "seeded random latents."
             )
-        print(f"WARNING: {len(missing)}/{num_fisher_img} Fisher noise fixtures missing under {noise_dir!r}; "
+        log(f"WARNING: {len(missing)}/{num_fisher_img} Fisher noise fixtures missing under {noise_dir!r}; "
               "substituting seeded random latents (--allow_random_fisher_noise). Fisher scores will NOT match "
               "runs that use the reference fixtures.", flush=True)
     return np.concatenate(noises, axis=0), rows
@@ -278,9 +296,24 @@ def _write_best(host_state, *, ckpt_dir, fid, tcfg) -> None:
 
 def main(argv=None, *, device="cuda") -> dict:
     """Run the training loop; returns a summary (start iteration, counts of
-    iterations, Fisher rounds and evaluations, best FID, seconds)."""
+    iterations, Fisher rounds and evaluations, best FID, seconds).  Under
+    torchrun, joins the process group first and leaves it at the end."""
     args = build_parser().parse_args(argv)
-    refuse_unported(args)
+    check_n_devices(args)
+    joins = not torch.distributed.is_initialized()
+    with contextlib.ExitStack() as stack:
+        group, device = initialize_multihost(device)
+        if group is not None and joins:
+            stack.callback(torch.distributed.destroy_process_group)
+        return run_training(args, group, device)
+
+
+def run_training(args, group, device) -> dict:
+    """The loop of `main` on `device`, as one rank of `group` (None: the
+    only process)."""
+    is_main = is_main_process(group)
+    say = print if is_main else (lambda *a, **k: None)
+    local_batch_size(args.batch, group)  # a batch that does not divide raises here
 
     random.seed(args.seed)
     np.random.seed(args.seed)
@@ -294,7 +327,8 @@ def main(argv=None, *, device="cuda") -> dict:
     args.sample_dir = os.path.join(args.output_path, "samples")
     args.checkpoint_dir = os.path.join(args.output_path, "checkpoints")
     for d in (args.output_path, args.sample_dir, args.checkpoint_dir):
-        os.makedirs(d, exist_ok=True)
+        if is_main:
+            os.makedirs(d, exist_ok=True)
     args.latent, args.n_mlp, args.start_iter = 512, 8, 0
 
     # ---- configs
@@ -316,27 +350,30 @@ def main(argv=None, *, device="cuda") -> dict:
         train_ds = ImageDataset(train_path, resolution=args.size)
     else:
         base = ImageDataset(test_path, resolution=args.size)
-        few_shot_idx = np.random.choice(len(base), size=args.n_sample_train, replace=False)
-        np.savetxt(os.path.join(args.output_path, f"{args.n_sample_train}-shot-index.txt"), few_shot_idx)
+        few_shot_idx = np.random.choice(len(base), size=args.n_sample_train, replace=False)  # equal on every rank
+        if is_main:
+            np.savetxt(os.path.join(args.output_path, f"{args.n_sample_train}-shot-index.txt"), few_shot_idx)
         train_ds = ImageDataset(test_path, resolution=args.size, indices=few_shot_idx)
-        print(f"Few-shot transfer with {few_shot_idx.size}-shot images")
+        say(f"Few-shot transfer with {few_shot_idx.size}-shot images")
     # A few-shot set is staged whole on the device: each batch is then a
     # gather and a flip there, and the host, which already bounds the
     # training phases, neither decodes nor copies per iteration.  Larger sets
-    # stream from the host thread.
+    # stream from the host thread, each rank its rows with a seed of its own.
     staged_bytes = len(train_ds) * 3 * args.size * args.size * 4
     if staged_bytes <= (512 << 20):
-        train_loader = device_data_stream(train_ds, args.batch, seed=args.seed, device=device)
+        train_loader = device_data_stream(train_ds, args.batch, seed=args.seed, device=device, group=group)
     else:
-        train_loader = data_stream(train_ds, args.batch, seed=args.seed, device=device)
+        train_loader = data_stream(train_ds, local_batch_size(args.batch, group), seed=args.seed + 7919 * rank(group),
+                                   device=device)
 
-    # ---- args.txt (`:845-851`) and the script copy (`:853-857`)
-    with open(os.path.join(args.output_path, "args.txt"), "w") as f:
-        f.writelines("------------------ start ------------------\n")
-        for k, v in vars(args).items():
-            f.writelines(f"{k} : {v}\n")
-        f.writelines("------------------- end -------------------")
-    shutil.copy(os.path.abspath(__file__), os.path.join(args.output_path, "train_script.py"))
+    # ---- args.txt (`:845-851`) and the script copy (`:853-857`), rank 0 only (`:605`)
+    if is_main:
+        with open(os.path.join(args.output_path, "args.txt"), "w") as f:
+            f.writelines("------------------ start ------------------\n")
+            for k, v in vars(args).items():
+                f.writelines(f"{k} : {v}\n")
+            f.writelines("------------------- end -------------------")
+        shutil.copy(os.path.abspath(__file__), os.path.join(args.output_path, "train_script.py"))
 
     # ---- models + source checkpoint (`:864-879`)
     wgen = torch.Generator(device=device).manual_seed(args.seed)
@@ -347,7 +384,7 @@ def main(argv=None, *, device="cuda") -> dict:
     if args.ckpt_source and os.path.exists(ckpt_path):
         if args.source_key not in args.ckpt_source:
             raise ValueError(f"--source_key {args.source_key!r} is not in --ckpt_source {args.ckpt_source!r}")
-        print("load model:", args.ckpt_source)
+        say("load model:", args.ckpt_source)
         g_ema = copy.deepcopy(g)  # the checkpoint's g_ema merged over G's init, as rick_tpu does
         load_checkpoint(ckpt_path, device, g=g, g_ema=g_ema, d=d)
     state = init_train_state(gcfg, dcfg, tcfg, rng=wgen, device=device, g=g, d=d)
@@ -362,7 +399,7 @@ def main(argv=None, *, device="cuda") -> dict:
         if candidates:
             resume_path = candidates[-1]
     resumed_best_fid = None
-    if resume_path:
+    if resume_path:  # every rank reads the file; rank 0's state is broadcast below
         tree, manifest = load_state(resume_path)
         state = train_state_from_jax(gcfg, dcfg, tree, tcfg=tcfg, device=device)
         start_iter = int(manifest.get("step", 0))
@@ -375,8 +412,9 @@ def main(argv=None, *, device="cuda") -> dict:
         if os.path.exists(bf_txt):
             marks.append(float(np.loadtxt(bf_txt).reshape(-1)[0]))
         resumed_best_fid = min(marks) if marks else None
-        print(f"resumed from {resume_path} at iter {start_iter}"
-              + (f" (best FID so far {resumed_best_fid:.3f})" if resumed_best_fid is not None else ""), flush=True)
+        say(f"resumed from {resume_path} at iter {start_iter}"
+            + (f" (best FID so far {resumed_best_fid:.3f})" if resumed_best_fid is not None else ""), flush=True)
+    replicate_train_state(state, group)
 
     # ---- evaluator (`:947-958`).  The real set's caches depend only on
     # {dataset, size, n_sample_test, seed}, so they live beside the dataset
@@ -384,9 +422,10 @@ def main(argv=None, *, device="cuda") -> dict:
     evaluator = None
     cache_dir = os.path.join(args.data_root, "_cache")
     real_imgs_cache, real_acts_cache = _real_cache_paths(args, test_path, cache_dir)
-    os.makedirs(cache_dir, exist_ok=True)
-    if os.environ.get("RICK_CLEAR_REAL_CACHE") == "1":
-        _evict_stale_real_caches(cache_dir, [real_imgs_cache, real_acts_cache])
+    if is_main:
+        os.makedirs(cache_dir, exist_ok=True)
+        if os.environ.get("RICK_CLEAR_REAL_CACHE") == "1":
+            _evict_stale_real_caches(cache_dir, [real_imgs_cache, real_acts_cache])
     if args.eval_in_training:
         if os.path.exists(real_imgs_cache):
             x_real_test = np.load(real_imgs_cache)
@@ -394,31 +433,33 @@ def main(argv=None, *, device="cuda") -> dict:
             test_ds = ImageDataset(test_path, resolution=args.size, flip=True)
             x_real_f32 = get_nsamples(test_ds, args.n_sample_test, seed=args.seed)
             x_real_test = np.clip(np.rint((x_real_f32 + 1.0) * 127.5), 0, 255).astype(np.uint8)
-            _save_npy(real_imgs_cache, x_real_test)
+            if is_main:
+                _save_npy(real_imgs_cache, x_real_test)
         real_acts = np.load(real_acts_cache) if os.path.exists(real_acts_cache) else None
         evaluator = Evaluator(
             gcfg, fid_real_samples=x_real_test, inception_nsamples=args.n_sample_test,
             batch_size=max(args.batch, 25), n_sample_store=args.n_sample_store,
             inception_dtype=torch.bfloat16 if args.eval_bf16 else torch.float32,
-            inception_nhwc=args.eval_nhwc, real_acts=real_acts, device=device,
+            inception_nhwc=args.eval_nhwc, real_acts=real_acts, device=device, group=group,
         )
-        if real_acts is None:
-            _save_npy(real_acts_cache, evaluator._real_acts)
-        x_real = get_nsamples(train_ds, 10)
-        save_image_grid(torch.from_numpy(x_real), os.path.join(args.output_path, "real.png"), nrow=5)
+        if is_main:
+            if real_acts is None:
+                _save_npy(real_acts_cache, evaluator._real_acts)
+            x_real = get_nsamples(train_ds, 10)
+            save_image_grid(torch.from_numpy(x_real), os.path.join(args.output_path, "real.png"), nrow=5)
 
     # ---- fixed latents
     if os.path.exists(args.sample_noise):
         sample_z = torch.as_tensor(torch.load(args.sample_noise, map_location="cpu", weights_only=True),
                                    dtype=torch.float32)
     else:
-        print(f"WARNING: fixed sample latents {args.sample_noise!r} not found; using seeded random latents "
-              "(torch.Generator seed 0) - sample grids will not match runs that use the reference noise.pt "
-              "fixture.", flush=True)
+        say(f"WARNING: fixed sample latents {args.sample_noise!r} not found; using seeded random latents "
+            "(torch.Generator seed 0) - sample grids will not match runs that use the reference noise.pt "
+            "fixture.", flush=True)
         sample_z = torch.randn((args.n_sample_store, args.latent), generator=torch.Generator().manual_seed(0))
     sample_z = sample_z.to(device)
     fisher_noises, fisher_rows = load_fisher_noises(args.fisher_noise_dir, args.num_fisher_img, args.latent,
-                                                    args.batch, allow_random=args.allow_random_fisher_noise)
+                                                    args.batch, allow_random=args.allow_random_fisher_noise, log=say)
     fisher_noises = torch.from_numpy(fisher_noises).to(device)
 
     # ---- training loop (`:159-699`)
@@ -426,12 +467,12 @@ def main(argv=None, *, device="cuda") -> dict:
     t_start = time.time()
     log_every = 50
     stats = StatsLogger(args.output_path, use_wandb=args.wandb, project=args.wandb_project_name,
-                        run_name=args.wandb_run_name)
-    saver = AsyncSaver(max_pending=2)
+                        run_name=args.wandb_run_name) if is_main else None
+    saver = AsyncSaver(max_pending=2) if is_main else None
     best_dirty = None  # (snapshot, fid) of the newest best not yet submitted
     last_best_save = 0.0
     best_save_interval = float(os.environ.get("RICK_BEST_SAVE_INTERVAL_S", "60"))
-    profiler = ProfilerHook(args.profile_dir, start_iter=max(start_iter + 5, args.warmup_iter + 2))
+    profiler = ProfilerHook(args.profile_dir if is_main else "", start_iter=max(start_iter + 5, args.warmup_iter + 2))
     write_best = functools.partial(_write_best, ckpt_dir=args.checkpoint_dir, tcfg=tcfg)
     done = {"start_iter": start_iter, "iterations": 0, "fisher_rounds": 0, "evaluations": 0}
     # to --iter + 10 inclusive, as rick_tpu (`:527`)
@@ -439,14 +480,14 @@ def main(argv=None, *, device="cuda") -> dict:
         profiler.step(i)
 
         # Fisher round (`:213-393`): one real batch per noise file, rows
-        # paired index for index (`:228-237`)
+        # paired index for index (`:228-237`); the global batch's rows
         if i >= args.warmup_iter and (i - args.warmup_iter) % args.fisher_freq == 0:
-            reals = torch.cat([next(train_loader)[:r] for r in fisher_rows])
+            reals = torch.cat([all_gather_rows(next(train_loader), group)[:r] for r in fisher_rows])
             gf, gp, df, dp = fisher_round(
                 state.g_ema, state.d_ema, fisher_noises, reals, batch=args.batch,
                 fisher_quantile=args.fisher_quantile, prune_quantile=args.prune_quantile,
                 denom=float(args.num_fisher_img * args.batch),
-                gen=iteration_generator(device, args.seed, i, FISHER_TAG),
+                gen=iteration_generator(device, args.seed, i, FISHER_TAG), group=group,
             )
             state.g_freeze, state.d_freeze = gf, df
             if i == args.warmup_iter:
@@ -457,32 +498,34 @@ def main(argv=None, *, device="cuda") -> dict:
             done["fisher_rounds"] += 1
 
         real = next(train_loader)
-        metrics = run_iteration(state, tcfg, real, i, gen=iteration_generator(device, args.seed, i, PHASES_TAG))
+        metrics = run_iteration(state, tcfg, real, i, gen=iteration_generator(device, args.seed, i, PHASES_TAG),
+                                group=group)
         done["iterations"] += 1
 
-        if i % log_every == 0:
+        if is_main and i % log_every == 0:
             m = {k: float(v) for k, v in metrics.items()}
             stats.log(i, m)
             print(f"[{i}/{args.iter}] d: {m['d']:.4f}; g: {m['g']:.4f}; r1: {m['r1']:.4f}; "
                   f"path: {m['path']:.4f}; mean path: {m['mean_path_length']:.4f}; "
                   f"augment: {m['ada_p']:.4f}; {time.time() - t_start:.1f}s elapsed", flush=True)
 
-        if args.store_samples and i % args.samples_freq == 0:
+        if is_main and args.store_samples and i % args.samples_freq == 0:
             grid = sample_images(state.g_ema, sample_z)
             save_image_grid(grid, os.path.join(args.sample_dir, f"{i:06d}.png"), nrow=int(args.n_sample_store**0.5))
 
-        if args.store_checkpoints and i % args.checkpoints_freq == 0 and i > 0:
+        if is_main and args.store_checkpoints and i % args.checkpoints_freq == 0 and i > 0:
             saver.submit(functools.partial(_write_periodic, ckpt_dir=args.checkpoint_dir, step=i, best_fid=best_fid,
                                            gcfg=gcfg, dcfg=dcfg, tcfg=tcfg), Snapshot(state_dicts(state)))
 
         if evaluator is not None and i % args.eval_in_training_freq == 0:
             score = evaluator.compute_inception_score(state.g_ema)
             done["evaluations"] += 1
-            print(f"[{i}] FID: {score['fid']:.3f}", flush=True)
-            stats.log(i, {"fid": float(score["fid"])})
+            say(f"[{i}] FID: {score['fid']:.3f}", flush=True)
+            if is_main:
+                stats.log(i, {"fid": float(score["fid"])})
             if score["fid"] < best_fid:
                 best_fid = score["fid"]
-                best_dirty = (Snapshot(state_dicts(state)), best_fid)
+                best_dirty = (Snapshot(state_dicts(state)), best_fid) if is_main else None
             # throttled: the newest best is flushed at the end regardless
             if best_dirty is not None and time.time() - last_best_save >= best_save_interval:
                 snap, fid = best_dirty
@@ -491,13 +534,14 @@ def main(argv=None, *, device="cuda") -> dict:
                 saver.submit_latest("best", functools.partial(write_best, fid=fid), snap)
 
     train_loader.close()
-    if best_dirty is not None:
-        snap, fid = best_dirty
-        saver.submit_latest("best", functools.partial(write_best, fid=fid), snap)
-    saver.close()
-    stats.close()
+    if is_main:
+        if best_dirty is not None:
+            snap, fid = best_dirty
+            saver.submit_latest("best", functools.partial(write_best, fid=fid), snap)
+        saver.close()
+        stats.close()
     done.update(best_fid=best_fid, seconds=time.time() - t_start)
-    print(f"done in {done['seconds']:.1f}s; best FID {best_fid}", flush=True)
+    say(f"done in {done['seconds']:.1f}s; best FID {best_fid}", flush=True)
     return done
 
 

@@ -13,6 +13,11 @@ of 255 apart (1/127.5 after normalization).
 `data_stream` runs a host thread that decodes ahead and copies each batch to
 the device from pinned memory; `device_data_stream` stages a few-shot set
 whole on the device and draws each batch there as a gather and a flip.
+
+Data-parallel runs (`dist/`): the staged stream draws the global batch on
+every rank, from the same seeds, and yields the rank's rows of it, so N
+ranks see the batches one process sees; the host stream is started per rank
+with the local batch size and its own seed (`cli/train.py`), as `rick_tpu`'s.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from rick_tpu_torch.data.png import decode_png
+from rick_tpu_torch.dist import Group, local_rows
 from rick_tpu_torch.data.store import open_image_store
 
 
@@ -165,9 +171,11 @@ def device_data_stream(
     shuffle: bool = True,
     drop_last: bool = True,
     device="cuda",
+    group: Group = None,
 ):
     """A few-shot dataset staged whole on `device`; each batch is a gather
-    and a random horizontal flip there.
+    and a random horizontal flip there.  `batch_size` is the global batch;
+    with a process `group`, each batch is this rank's rows of it.
 
     The epoch order comes from `np.random.default_rng(seed)`, as in
     `rick_tpu`; the flips from a `torch.Generator` on the device seeded with
@@ -203,7 +211,7 @@ def device_data_stream(
             self._pos += batch_size
             b = imgs_dev[idx]
             do = torch.rand((idx.shape[0],), generator=flips, device=device) < 0.5
-            return torch.where(do[:, None, None, None], b.flip(-1), b)
+            return local_rows(torch.where(do[:, None, None, None], b.flip(-1), b), group)
 
         def close(self):
             pass

@@ -47,26 +47,26 @@ def _unfilter_fn():
         return _unfilter
 
 
-def _chunks(blob: bytes):
+def _chunks(blob: bytes, name: str):
     """(type, data) of each chunk after the signature, CRC checked."""
     pos = len(SIGNATURE)
     while pos < len(blob):
         if pos + 8 > len(blob):
-            raise ValueError(f"PNG truncated in a chunk header at byte {pos}")
+            raise ValueError(f"{name}: PNG truncated in a chunk header at byte {pos}")
         (length,) = struct.unpack_from(">I", blob, pos)
         ctype = bytes(blob[pos + 4 : pos + 8])
         end = pos + 8 + length
         if end + 4 > len(blob):
-            raise ValueError(f"PNG truncated in chunk {ctype!r} at byte {pos}")
+            raise ValueError(f"{name}: PNG truncated in chunk {ctype!r} at byte {pos}")
         data = bytes(blob[pos + 8 : end])
         (crc,) = struct.unpack_from(">I", blob, end)
         if zlib.crc32(ctype + data) != crc:
-            raise ValueError(f"PNG chunk {ctype!r} at byte {pos} fails its CRC")
+            raise ValueError(f"{name}: PNG chunk {ctype!r} at byte {pos} fails its CRC")
         yield ctype, data
         if ctype == b"IEND":
             return
         pos = end + 4
-    raise ValueError("PNG has no IEND chunk")
+    raise ValueError(f"{name}: PNG has no IEND chunk")
 
 
 def _describe(blob: bytes) -> str:
@@ -75,23 +75,24 @@ def _describe(blob: bytes) -> str:
     return f"not a PNG (starts with {bytes(blob[:8])!r})"
 
 
-def decode_png(blob: bytes) -> np.ndarray:
-    """PNG bytes -> (H, W, 3) uint8 RGB."""
+def decode_png(blob: bytes, *, name: str = "the blob") -> np.ndarray:
+    """PNG bytes -> (H, W, 3) uint8 RGB; what cannot be decoded raises
+    ValueError naming it `name`."""
     blob = bytes(blob)
     if not blob.startswith(SIGNATURE):
-        raise ValueError(f"cannot decode the blob: {_describe(blob)}")
+        raise ValueError(f"cannot decode {name}: {_describe(blob)}")
     header, idat = None, []
-    for ctype, data in _chunks(blob):
+    for ctype, data in _chunks(blob, name):
         if ctype == b"IHDR":
             header = struct.unpack(">IIBBBBB", data)
         elif ctype == b"IDAT":
             idat.append(data)
     if header is None:
-        raise ValueError("PNG has no IHDR chunk")
+        raise ValueError(f"{name}: PNG has no IHDR chunk")
     width, height, depth, color, compression, filt, interlace = header
     if depth != 8 or color not in _CHANNELS or compression != 0 or filt != 0 or interlace != 0:
         raise ValueError(
-            f"PNG of {depth}-bit {_COLOR_NAMES.get(color, f'color type {color}')}"
+            f"{name}: PNG of {depth}-bit {_COLOR_NAMES.get(color, f'color type {color}')}"
             f"{', interlaced' if interlace else ''} (compression {compression}, filter {filt}): "
             "only 8-bit gray, RGB and RGBA, not interlaced, are decoded"
         )
@@ -99,12 +100,12 @@ def decode_png(blob: bytes) -> np.ndarray:
     stride = width * bpp
     raw = zlib.decompress(b"".join(idat))
     if len(raw) != height * (stride + 1):
-        raise ValueError(f"PNG image data holds {len(raw)} bytes, {width}x{height} {_COLOR_NAMES[color]} "
+        raise ValueError(f"{name}: PNG image data holds {len(raw)} bytes, {width}x{height} {_COLOR_NAMES[color]} "
                          f"needs {height * (stride + 1)}")
     out = np.empty((height, width, bpp), np.uint8)
     bad = _unfilter_fn()(raw, out.ctypes.data, height, stride, bpp)
     if bad:
-        raise ValueError(f"PNG row {bad - 1} has filter type {raw[(bad - 1) * (stride + 1)]}, not 0-4")
+        raise ValueError(f"{name}: PNG row {bad - 1} has filter type {raw[(bad - 1) * (stride + 1)]}, not 0-4")
     if bpp == 1:
         return np.repeat(out, 3, axis=2)
     return np.ascontiguousarray(out[..., :3]) if bpp == 4 else out

@@ -11,10 +11,15 @@ the device.  KID uses the first 2000 activations of each side.  With
 draws, against the real set's manifold, built once; `compute_intra_lpips`
 scores generated samples against a cluster-center directory.
 
-Randomness comes from one `torch.Generator` on the evaluator's device, seeded
-with `seed`.  `fast_gen=None` takes the fused upsample kernel (K4) wherever
-g_ema is on a CUDA device and the plain chain on the CPU; an explicit bool is
-the caller's choice.
+The FID and P&R draws come in blocks of the single-process chunk size,
+block b's latents and then its per-layer noise from a `torch.Generator`
+on the evaluator's device seeded by (`seed`, the call's number, b): sample
+i of a call is row i % block of block i // block whatever the world size
+and the chunking, so a sharded run generates one process's samples.  KID's
+subsets, `generate` and intra-LPIPS draw from one generator seeded with
+`seed`.  `fast_gen=None` takes the fused
+upsample kernel (K4) wherever g_ema is on a CUDA device and the plain chain
+on the CPU; an explicit bool is the caller's choice.
 
 `gen_dtype` is the compute dtype of the FID draws' generation, as rick_tpu's
 (`generator_apply(..., dtype=gen_dtype)`); precision/recall, `generate` and
@@ -23,7 +28,16 @@ StyledConv computes in bf16 (K3's bf16 instantiation): its f32 activation
 bias makes its output f32, so K4, at every upsample StyledConv after it,
 takes f32 as it does in f32 generation.
 
-Not here: the data-parallel mesh (`mesh=`, NotImplementedError, see ROADMAP).
+With a process `group` (`rick_tpu`'s `mesh=`) whose world size divides
+`inception_nsamples`, the evaluation is sharded as `rick_tpu`'s: each rank
+generates `inception_nsamples / world` samples in chunks of the divisor of
+that count nearest `gen_batch` (the larger on a tie), rank r the samples
+r * n / world to (r + 1) * n / world - 1 of the whole run; mu is the
+all-reduced sum of the activations over n, and the covariance the
+all-reduced centred product over n - 1, the single-process formula in two
+passes.  KID and P&R gather the activations and the VGG16 features.  A
+world size that does not divide runs the single-process evaluation on
+every rank.
 """
 
 from __future__ import annotations
@@ -34,6 +48,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from rick_tpu_torch.dist import Group, all_gather_rows, rank, reduce_sum, world_size
 from rick_tpu_torch.metrics.fid import (
     _is_uint8,
     calculate_frechet_distance,
@@ -92,7 +107,7 @@ class Evaluator:
         inception_nhwc: bool = False,
         real_acts: Optional[np.ndarray] = None,
         seed: int = 0,
-        mesh=None,
+        group: Group = None,
         fast_gen: Optional[bool] = None,
         inception_stop_at: Optional[str] = None,
         inception_resize_to: int = 299,
@@ -103,9 +118,8 @@ class Evaluator:
         extraction.  `inception_nhwc` runs Inception in channels_last.
         `inception_stop_at` / `inception_resize_to` cut the Inception trunk
         for cheap tests, on both sides alike (metric values use the
-        defaults)."""
-        if mesh is not None:
-            raise NotImplementedError("Evaluator(mesh=...): the sharded eval is ROADMAP queue 1 item 13")
+        defaults).  `group`: the process group to shard over (see the
+        module's docstring); every rank of it must make the same calls."""
         self.gcfg = gcfg
         self.gen_dtype = gen_dtype
         self.device = torch.empty(0, device=device).device  # "cuda" -> "cuda:0", as a module reports it
@@ -118,17 +132,29 @@ class Evaluator:
         self.batch_size = batch_size
         self.n_sample_store = n_sample_store
         self.latent = latent
-        # chunk size dividing n evenly
-        gen_batch = min(gen_batch, inception_nsamples)
-        while inception_nsamples % gen_batch != 0:
-            gen_batch -= 1
+        world = world_size(group)
+        self.group = group if world > 1 and inception_nsamples % world == 0 else None
+        # the single-process chunk, the largest divisor of n up to gen_batch: the draws' block
+        self._block = min(gen_batch, inception_nsamples)
+        while inception_nsamples % self._block != 0:
+            self._block -= 1
+        if self.group is not None:
+            # per rank: the divisor of its count nearest gen_batch, the larger on a tie
+            n_local = inception_nsamples // world
+            gen_batch = min((d for d in range(1, n_local + 1) if n_local % d == 0),
+                            key=lambda d: (abs(d - gen_batch), -d))
+            self.n_chunks = n_local // gen_batch  # per rank
+        else:
+            gen_batch = self._block
+            self.n_chunks = inception_nsamples // gen_batch
         self.gen_batch = gen_batch
-        self.n_chunks = inception_nsamples // gen_batch
         self.inception = inception_from_params(
             inception_params if inception_params is not None else default_inception_params(),
             device=self.device, dtype=inception_dtype, channels_last=inception_nhwc,
         )
         self._pool3_kw = dict(stop_at=inception_stop_at, resize_to=inception_resize_to)
+        self.seed = seed
+        self._calls = 0  # compute_inception_score calls so far: the draws' seed
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         # VGG16 (default_vgg16_params) for precision/recall; the real manifold is built at the first call
         self.ipr = IPR(batch_size, k=3, num_samples=inception_nsamples, device=self.device) if compute_pr else None
@@ -147,38 +173,84 @@ class Evaluator:
         if g_ema.device != self.device:
             raise ValueError(f"g_ema is on {g_ema.device}, the evaluator on {self.device}")
 
-    def activations(self, g_ema, z: torch.Tensor, *, rng: Optional[torch.Generator] = None) -> torch.Tensor:
+    def _chunks(self, z: torch.Tensor, noise):
+        """(latents, noise) of each chunk of `gen_batch` rows of `z` and of
+        the per-layer `noise` (None: drawn by g_ema)."""
+        for i, zc in enumerate(z.split(self.gen_batch)):
+            yield zc, None if noise is None else [n[i * self.gen_batch : (i + 1) * self.gen_batch] for n in noise]
+
+    def activations(self, g_ema, z: torch.Tensor, *, rng: Optional[torch.Generator] = None,
+                    noise=None) -> torch.Tensor:
         """pool3 activations (n, d), f32 on the device, of g_ema's images of
         the latents `z` (n, latent), generated in `gen_dtype`, in chunks of
-        `gen_batch`; noise is drawn from `rng`, or is the generator's
-        constant buffers when `rng` is None."""
+        `gen_batch`; the per-layer `noise` (each (n, 1, r, r)) if given, else
+        drawn from `rng`, or the generator's constant buffers when `rng` is
+        None."""
         self._check(g_ema)
         out = []
         with torch.inference_mode():
-            for zc in z.split(self.gen_batch):
-                imgs, _ = g_ema([zc], rng=rng, dtype=self.gen_dtype, fast=self._fast)
+            for zc, nc in self._chunks(z, noise):
+                imgs, _ = g_ema([zc], rng=rng, noise=nc, dtype=self.gen_dtype, fast=self._fast)
                 out.append(self.inception.pool3(imgs, **self._pool3_kw).float())
         return torch.cat(out)
 
-    def vgg_features(self, g_ema, z: torch.Tensor, *, rng: Optional[torch.Generator] = None) -> torch.Tensor:
+    def vgg_features(self, g_ema, z: torch.Tensor, *, rng: Optional[torch.Generator] = None,
+                     noise=None) -> torch.Tensor:
         """VGG16 fc2 features (n, 4096), f64 on the device, of g_ema's images
         of the latents `z`, in chunks of `gen_batch`; noise as in
         `activations`."""
         self._check(g_ema)
         out = []
         with torch.inference_mode():
-            for zc in z.split(self.gen_batch):
-                imgs, _ = g_ema([zc], rng=rng, fast=self._fast)
+            for zc, nc in self._chunks(z, noise):
+                imgs, _ = g_ema([zc], rng=rng, noise=nc, fast=self._fast)
                 out.append(vgg16_fc2_features(self.ipr.vgg, imgs).double())
         return torch.cat(out)
 
+    def _block_draws(self, g_ema, kind: int, b: int):
+        """(latents, per-layer noise) of block b of this call's draws of
+        `kind` (0 FID, 1 P&R): a generator seeded by (seed, the call, kind,
+        b) draws the latents, then the noise as g_ema draws it."""
+        s = np.random.SeedSequence([self.seed, self._calls, kind, b]).generate_state(1, np.uint64)[0]
+        gen = torch.Generator(device=self.device).manual_seed(int(s))
+        z = torch.randn((self._block, self.latent), generator=gen, device=self.device)
+        return z, g_ema.layer_noise(self._block, gen, None)
+
+    def _chunk_draws(self, g_ema, kind: int):
+        """(latents, per-layer noise) of each chunk this rank generates, in
+        order: rows lo to lo + gen_batch - 1 of the call's draws, cut from
+        the blocks they fall in (a chunk that is one block is that block)."""
+        blk, gb = self._block, self.gen_batch
+        first = rank(self.group) * self.n_chunks * gb
+        held = {}  # the last block drawn: the next chunk may start inside it
+        for lo in range(first, first + self.n_chunks * gb, gb):
+            zs, noises = [], []
+            for b in range(lo // blk, (lo + gb - 1) // blk + 1):
+                if b not in held:
+                    held = {b: self._block_draws(g_ema, kind, b)}
+                z, noise = held[b]
+                i, j = max(lo, b * blk) - b * blk, min(lo + gb, (b + 1) * blk) - b * blk
+                zs.append(z[i:j])
+                noises.append([n[i:j] for n in noise])
+            if len(zs) == 1:
+                yield zs[0], noises[0]
+            else:
+                yield torch.cat(zs), [torch.cat(ns) for ns in zip(*noises)]
+
     def _fake_acts(self, g_ema) -> torch.Tensor:
-        """The activations of `inception_nsamples` fresh draws."""
-        out = []
-        for _ in range(self.n_chunks):
-            z = torch.randn((self.gen_batch, self.latent), generator=self._gen, device=self.device)
-            out.append(self.activations(g_ema, z, rng=self._gen))
-        return torch.cat(out)
+        """This rank's activations of the call's fresh draws (all
+        `inception_nsamples` on one process)."""
+        return torch.cat([self.activations(g_ema, z, noise=n) for z, n in self._chunk_draws(g_ema, 0)])
+
+    def _fake_stats(self, acts: torch.Tensor):
+        """(mu, cov) of the whole run's activations from this rank's."""
+        if self.group is None:
+            return _stats_from_acts(acts)
+        n = self.inception_nsamples
+        x = acts.float()
+        mu = reduce_sum(x.sum(dim=0), self.group) / n
+        xc = x - mu
+        return mu, reduce_sum(xc.T @ xc, self.group) / (n - 1)
 
     def real_stats64(self):
         """The real set's (mu, cov) in f64 on the host."""
@@ -220,11 +292,12 @@ class Evaluator:
         if pr and self.ipr is None:
             raise ValueError("pr=True needs an Evaluator built with compute_pr=True")
         score: Dict[str, float] = {}
+        self._calls += 1
         acts = self._fake_acts(g_ema)
-        mu, cov = _stats_from_acts(acts)
+        mu, cov = self._fake_stats(acts)
         self.last_stats = (mu, cov)
         if kid:
-            real, fake = self._real_acts_dev[:2000], acts[:2000]
+            real, fake = self._real_acts_dev[:2000], all_gather_rows(acts, self.group)[:2000]
             m = min(1000, real.shape[0], fake.shape[0])
 
             def draw(n):
@@ -237,11 +310,8 @@ class Evaluator:
         if pr:
             if self.ipr.manifold_ref is None:  # the real set's, the same at every call
                 self.ipr.compute_manifold_ref(self.real)
-            feats = torch.cat([
-                self.vgg_features(g_ema, torch.randn((self.gen_batch, self.latent), generator=self._gen,
-                                                     device=self.device), rng=self._gen)
-                for _ in range(self.n_chunks)
-            ])
+            feats = all_gather_rows(torch.cat([self.vgg_features(g_ema, z, noise=n)
+                                               for z, n in self._chunk_draws(g_ema, 1)]), self.group)
             score["precision"], score["recall"] = precision_and_recall_device(
                 self.ipr.manifold_ref, manifold_device(feats, self.ipr.k))
         return score

@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from rick_tpu_torch.dist import all_gather_rows, process_batch_slice
 from rick_tpu_torch.ops import (
     convt_blur_act,
     fused_leaky_relu,
@@ -341,19 +342,31 @@ class ResBlock(nn.Module):
         return (f2 + self.skip(x)) / math.sqrt(2.0), f1, f2
 
 
-def minibatch_stddev(x, *, stddev_group: int = 25, stddev_feat: int = 1, splits: int = 1):
+def minibatch_stddev(x, *, stddev_group: int = 25, stddev_feat: int = 1, splits: int = 1, group=None):
     """Minibatch stddev with group min(batch, 25), population variance.
 
     `splits=s` treats the batch as `s` contiguous sub-batches, each with its
-    own statistics (equal to `s` separate calls)."""
+    own statistics (equal to `s` separate calls).  With a process `group`,
+    x is this rank's rows of a global batch: the statistics are those of
+    the global batch, gathered differentiably (`dist.all_gather_rows`), and
+    this rank's rows of the result come back, as one process computes them
+    on the whole batch.  The two do not combine: the gathered batch is
+    rank-major, not split-major."""
+    if group is not None:
+        if splits != 1:
+            raise ValueError(f"splits={splits} with a process group: the gathered batch is not split-major")
+        xg = all_gather_rows(x, group)
+        out = minibatch_stddev(xg, stddev_group=stddev_group, stddev_feat=stddev_feat, splits=splits)
+        start, size = process_batch_slice(xg.shape[0], group)
+        return out[start : start + size]
     batch, channel, height, width = x.shape
     if batch % splits:
         raise ValueError(f"batch {batch} does not split into {splits}")
     b = batch // splits
-    group = min(b, stddev_group)
-    y = x.reshape(splits, group, b // group, stddev_feat, channel // stddev_feat, height, width)
+    gsize = min(b, stddev_group)
+    y = x.reshape(splits, gsize, b // gsize, stddev_feat, channel // stddev_feat, height, width)
     var = torch.var(y, dim=1, unbiased=False)  # (s, b//group, feat, C//feat, H, W)
     stddev = torch.sqrt(var + 1e-8).mean(dim=(3, 4, 5))  # (s, b//group, feat)
-    stddev = stddev[:, None, :, :, None, None].expand(splits, group, b // group, stddev_feat, height, width)
+    stddev = stddev[:, None, :, :, None, None].expand(splits, gsize, b // gsize, stddev_feat, height, width)
     stddev = stddev.reshape(batch, stddev_feat, height, width)
     return torch.cat([x, stddev.to(x.dtype)], dim=1)

@@ -69,9 +69,12 @@ class Discriminator(nn.Module):
             EqualLinear(ch[4], 1, **kw),
         )
 
-    def forward(self, x, *, dtype: torch.dtype = torch.float32, stddev_splits: int = 1):
+    def forward(self, x, *, dtype: torch.dtype = torch.float32, stddev_splits: int = 1, group=None):
         """`stddev_splits=s` takes the minibatch-stddev statistics within `s`
-        contiguous sub-batches (equal to `s` separate forwards).
+        contiguous sub-batches (equal to `s` separate forwards).  With a
+        process `group`, x is this rank's rows of a global batch, and the
+        minibatch-stddev statistics are the global batch's (every rank of
+        the group must run this forward, and its backward, together).
 
         x is cast to `dtype` first, as `discriminator_apply` does; each layer
         computes in its input's dtype.  With bf16 that is the from-RGB conv
@@ -90,7 +93,7 @@ class Discriminator(nn.Module):
         batch = out.shape[0]
         out = minibatch_stddev(
             out, stddev_group=self.cfg.stddev_group, stddev_feat=self.cfg.stddev_feat,
-            splits=stddev_splits,
+            splits=stddev_splits, group=group,
         )
         out = self.final_conv(out)
         feats.append(out)

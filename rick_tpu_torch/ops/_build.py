@@ -6,7 +6,9 @@ together, into one directory under `build/rick_tpu_torch/` at the repo root;
 the libraries are loaded with `ctypes`.  No PyTorch header is included, so
 the build takes seconds.  The directory's name carries a hash of the sources
 and the flags: an edited source builds anew, an unchanged one loads the
-existing files.
+existing files.  One process builds at a time (an `flock` on
+`build/rick_tpu_torch/build.lock`, released when its holder exits): the
+ranks of a torchrun launch wait for the first and load its build.
 
 Every entry point takes its pointers and the CUDA stream as `void*`, launches
 on the stream it is given, and returns `cudaGetLastError()`; `check()` raises
@@ -19,7 +21,9 @@ g++ into a directory of its own beside the kernels'.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -93,15 +97,30 @@ def nvcc_command(src: Path, out: Path) -> List[str]:
     return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(src)]
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """Exclusive across processes while held."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        yield
+
+
 def build() -> Path:
     """Compile one library per source, in parallel, unless a build of the
     same sources exists.  Returns the build's directory."""
     global build_seconds, build_log
     out = build_path()
-    if out.exists():
-        build_seconds = 0.0
-        build_log = (out / "build.log").read_text()
-        return out
+    with _build_lock():
+        if out.exists():
+            build_seconds = 0.0
+            build_log = (out / "build.log").read_text()
+            return out
+        return _compile(out)
+
+
+def _compile(out: Path) -> Path:
+    global build_seconds, build_log
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     tmp.mkdir(parents=True)
     t0 = time.perf_counter()
@@ -121,10 +140,7 @@ def build() -> Path:
         shutil.rmtree(tmp)
         raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{build_log}")
     (tmp / "build.log").write_text(build_log)
-    if out.exists():  # another process finished the same build first
-        shutil.rmtree(tmp)
-    else:
-        os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+    os.replace(tmp, out)  # atomic: a reader without the lock sees all or nothing
     return out
 
 
@@ -202,22 +218,24 @@ def host_library(src: Path) -> ctypes.CDLL:
     h.update(src.read_bytes())
     out = BUILD_DIR / f"host_{src.stem}_{h.hexdigest()[:16]}"
     so = out / f"lib{src.stem}.so"
-    if not out.exists():
-        gxx = shutil.which("g++")
-        if gxx is None:
-            raise RuntimeError(f"no g++ found: it is needed to build {src.name}")
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        tmp.mkdir(parents=True)
-        proc = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp / so.name), str(src)], capture_output=True,
-                              text=True, timeout=300)
-        if proc.returncode != 0:
-            shutil.rmtree(tmp)
-            raise RuntimeError(f"g++ failed on {src.name} ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-        if out.exists():  # another process finished the same build first
-            shutil.rmtree(tmp)
-        else:
-            os.replace(tmp, out)
+    with _build_lock():
+        if not out.exists():
+            _compile_host(src, out, so)
     return ctypes.CDLL(str(so))
+
+
+def _compile_host(src: Path, out: Path, so: Path) -> None:
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"no g++ found: it is needed to build {src.name}")
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    tmp.mkdir(parents=True)
+    proc = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp / so.name), str(src)], capture_output=True,
+                          text=True, timeout=300)
+    if proc.returncode != 0:
+        shutil.rmtree(tmp)
+        raise RuntimeError(f"g++ failed on {src.name} ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
 
 
 def check(code: int, name: str) -> None:

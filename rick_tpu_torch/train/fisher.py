@@ -1,6 +1,5 @@
 """Fisher information and the freeze / fine-tune / prune decisions.  Port of
-`rick_tpu/train/fisher.py` (single device; the image-sharded mesh path is
-not ported yet).
+`rick_tpu/train/fisher.py`.
 
 `accumulate_fims` sums, over N batch-1 images, the squared gradients of the
 per-image G and D losses with respect to every param of g_ema and d_ema, and
@@ -9,6 +8,13 @@ num_fisher_img * batch, whatever the rows per file, and `rick_tpu` keeps
 that).  `masks_from_fims` scores filters in three groups, takes percentile
 cutlines (`torch.quantile`, linear, as `jnp.percentile`), and returns the
 freeze and prune masks keyed as `train/masks.py` keys them.
+
+With a process `group` whose size divides N, the images are sharded as
+`rick_tpu`'s `mesh=` path shards them: each rank sums the squared gradients
+of its block of images, and one all-reduce adds the sums, squared before
+they are reduced (the first JAX version reduced first and squared the sum).
+Otherwise every rank runs the whole round and takes rank 0's sums, so the
+masks are equal on every rank either way.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from rick_tpu_torch.dist import Group, process_batch_slice, replicate, sum_, world_size
 from rick_tpu_torch.train.losses import d_logistic_loss, g_nonsaturating_loss
 from rick_tpu_torch.train.masks import Masks
 
@@ -40,6 +47,7 @@ def accumulate_fims(
     denom: Optional[float] = None,
     const_noise: bool = False,
     gen: Optional[torch.Generator] = None,
+    group: Group = None,
 ) -> Tuple[Fims, Fims]:
     """Average squared per-image gradients {name: FIM} of g_ema and d_ema.
 
@@ -47,19 +55,31 @@ def accumulate_fims(
     g_nonsaturating(d_ema(g_ema(z_i))) and its D loss
     d_logistic(d_ema(real_i), d_ema(g_ema(z_i))).  The injection noise is the
     registered constant buffers with `const_noise=True`, else fresh per
-    image from `gen`."""
+    image from `gen`: every rank draws every image's, so that image i takes
+    the same noise however the images are sharded.  With a process `group`,
+    noises and reals are the whole set on every rank (see the module's
+    docstring)."""
     n = noises.shape[0]
     denom = float(n * batch) if denom is None else float(denom)
+    sharded = group is not None and n % world_size(group) == 0
+    start, size = process_batch_slice(n, group) if sharded else (0, n)
     gp, dp = dict(g_ema.named_parameters()), dict(d_ema.named_parameters())
     fim_g = {k: torch.zeros_like(v) for k, v in gp.items()}
     fim_d = {k: torch.zeros_like(v) for k, v in dp.items()}
     for i in range(n):
         noise = None if const_noise else g_ema.layer_noise(1, gen, None)
+        if not start <= i < start + size:
+            continue
         fake, _ = g_ema([noises[i : i + 1]], noise=noise)
         _add_squares(fim_g, gp, g_nonsaturating_loss(d_ema(fake)[0]))
         fake_pred, _ = d_ema(fake.detach())
         real_pred, _ = d_ema(reals[i : i + 1])
         _add_squares(fim_d, dp, d_logistic_loss(real_pred, fake_pred))
+    sums = list(fim_g.values()) + list(fim_d.values())
+    if sharded:
+        sum_(sums, group)
+    else:
+        replicate(sums, group)
     for fims in (fim_g, fim_d):
         for v in fims.values():
             v.div_(denom)
@@ -132,11 +152,12 @@ def fisher_round(
     denom: Optional[float] = None,
     const_noise: bool = False,
     gen: Optional[torch.Generator] = None,
+    group: Group = None,
 ) -> Tuple[Masks, Masks, Masks, Masks]:
     """FIM accumulation and the mask decisions: (g_freeze, g_prune,
     d_freeze, d_prune).  The caller replaces its freeze masks and merges the
-    prune masks (`masks.merge_prune`)."""
+    prune masks (`masks.merge_prune`).  `group`: see `accumulate_fims`."""
     fim_g, fim_d = accumulate_fims(
-        g_ema, d_ema, noises, reals, batch=batch, denom=denom, const_noise=const_noise, gen=gen,
+        g_ema, d_ema, noises, reals, batch=batch, denom=denom, const_noise=const_noise, gen=gen, group=group,
     )
     return masks_from_fims(fim_g, fim_d, fisher_quantile=fisher_quantile, prune_quantile=prune_quantile)

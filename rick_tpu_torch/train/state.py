@@ -13,6 +13,7 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from rick_tpu_torch.dist import Group, replicate
 from rick_tpu_torch.nn import Discriminator, DiscriminatorConfig, Generator, GeneratorConfig
 from rick_tpu_torch.train.adam import Params, make_adam
 from rick_tpu_torch.train.masks import Masks, d_trainable, g_trainable, init_d_masks, init_g_masks
@@ -159,3 +160,30 @@ def init_train_state(
         ada_stats=zero(2),
         r_t=zero(),
     )
+
+
+def replicate_train_state(state: TrainState, group: Group) -> None:
+    """In place: rank 0's whole state on every rank of `group` (params and
+    buffers of the four models, Adam's moments and step counts, the masks,
+    the path and ADA state), in one broadcast per dtype and device.  The
+    ranks must hold states of one structure, as `init_train_state` or a
+    resume from one file makes them."""
+    if group is None:
+        return
+    tensors = [t for m in (state.g, state.d, state.g_ema, state.d_ema) for t in m.state_dict().values()]
+    steps = []
+    for opt in (state.g_opt, state.d_opt):
+        for p in opt.param_groups[0]["params"]:
+            if p in opt.state:
+                st = opt.state[p]
+                tensors += [st["exp_avg"], st["exp_avg_sq"]]
+                steps.append(st["step"])
+    for masks in (state.g_freeze, state.g_prune, state.d_freeze, state.d_prune):
+        tensors += list(masks.values())
+    tensors += [state.mean_path_length, state.ada_p, state.ada_stats, state.r_t]
+    replicate(tensors, group)
+    if steps:  # Adam keeps its step counts on the host: they travel on the device as f64
+        counts = torch.tensor([float(c) for c in steps], dtype=torch.float64, device=state.ada_p.device)
+        replicate([counts], group)
+        for c, v in zip(steps, counts.tolist()):
+            c.fill_(v)

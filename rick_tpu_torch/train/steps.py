@@ -28,6 +28,18 @@ bf16 (`compute_dtype`), as rick_tpu's `make_train_step`: G's image and D's
 scores come back f32 (both promote after their first layer) and are cast to
 f32 before ADA and the losses all the same.  Params, gradients, Adam, the
 EMA, ADA, R1 and path length stay f32.
+
+With a process `group` (`dist/`, one rank per card), every draw is made at
+the global batch on every rank, from the same generator, and each rank keeps
+its rows (`local_draws`); its real batch is its rows of the global one.
+Each phase all-reduces its gradient dict to the mean, in one flat buffer per
+model, before the masks and Adam, so that the ranks take the same steps and
+keep equal state (`init_train_state` and `replicate_train_state` start them
+equal).  What spans the batch spans the global batch, as in XLA: D's
+minibatch stddev (a twice-differentiable gather), ADA's sign sum and count,
+the path-length mean, and the losses and scores returned.  A path batch that
+does not divide by the world size (1 in the recipe) runs whole on every
+rank, and rank 0's gradients are broadcast in place of the all-reduce.
 """
 
 from __future__ import annotations
@@ -39,6 +51,16 @@ from typing import Dict, List, Mapping, Optional, Union
 import torch
 
 from rick_tpu_torch.augment import augment, sample_affine, sample_color
+from rick_tpu_torch.dist import (
+    Group,
+    all_gather_rows,
+    average_,
+    local_rows,
+    reduce_mean,
+    reduce_sum,
+    replicate,
+    world_size,
+)
 from rick_tpu_torch.nn import GeneratorConfig
 from rick_tpu_torch.train.adam import Params, adam_step
 from rick_tpu_torch.train.losses import d_logistic_loss, g_nonsaturating_loss, path_stats
@@ -103,12 +125,33 @@ def sample_draws(
     return Draws(z1, z2, inject, noise, noise_img, ada_G, ada_C)
 
 
-def ada_update(ada_p, ada_stats, r_t, real_pred, tcfg: TrainConfig):
+def local_draws(draws: Draws, group: Group) -> Draws:
+    """This rank's rows of draws made at the global batch B.  The D phase's
+    ADA matrices (2B: the reals', then the fakes') keep this rank's rows of
+    each half."""
+    if group is None:
+        return draws
+
+    def rows(x):
+        return None if x is None else local_rows(x, group)
+
+    def ada(m):
+        if m is None or m.shape[0] == draws.z1.shape[0]:
+            return rows(m)
+        half = m.shape[0] // 2
+        return torch.cat([rows(m[:half]), rows(m[half:])])
+
+    return Draws(rows(draws.z1), rows(draws.z2), draws.inject_index, [rows(x) for x in draws.noise],
+                 rows(draws.noise_img), ada(draws.ada_G), ada(draws.ada_C))
+
+
+def ada_update(ada_p, ada_stats, r_t, real_pred, tcfg: TrainConfig, group: Group = None):
     """ADA probability adaptation: pool sign(real_pred); once more than 255
     predictions are pooled, step p by sign(r_t - target) * ada_step * n and
-    reset the pool.  Returns (ada_p, ada_stats, r_t)."""
+    reset the pool.  With a process `group`, the sign sum and the count are
+    the global batch's.  Returns (ada_p, ada_stats, r_t)."""
     count = torch.full((), real_pred.shape[0], dtype=ada_stats.dtype, device=ada_stats.device)
-    stats = ada_stats + torch.stack([torch.sign(real_pred).sum(), count])
+    stats = ada_stats + reduce_sum(torch.stack([torch.sign(real_pred).sum(), count]), group)
     trigger = stats[1] > 255
     r_t_new = stats[0] / torch.clamp(stats[1], min=1.0)
     sign = torch.where(r_t_new > tcfg.ada_target, 1.0, -1.0)
@@ -126,17 +169,30 @@ def _grads(loss: torch.Tensor, params: Params) -> Dict[str, torch.Tensor]:
     return {n: torch.zeros_like(p) if gr is None else gr for (n, p), gr in zip(params.items(), got)}
 
 
-def _d_step(state: TrainState, loss: torch.Tensor, warmup: bool) -> None:
+def _synced_grads(loss: torch.Tensor, params: Params, group: Group, replicated: bool) -> Dict[str, torch.Tensor]:
+    """`_grads`, then the mean over the ranks (one all-reduce), or with
+    `replicated` (every rank computed the same batch) rank 0's."""
+    grads = _grads(loss, params)
+    if replicated:
+        replicate(grads.values(), group)
+    else:
+        average_(grads.values(), group)
+    return grads
+
+
+def _d_step(state: TrainState, loss: torch.Tensor, warmup: bool, group: Group = None) -> None:
     active = trainable_params(state.d, d_final if warmup else d_trainable)
-    grads = mask_grads(_grads(loss, active), state.d_freeze, state.d_prune)
+    grads = mask_grads(_synced_grads(loss, active, group, False), state.d_freeze, state.d_prune)
     adam_step(state.d_opt, trainable_params(state.d, d_trainable), grads)
     prune_params(state.d, state.d_prune)
 
 
-def _g_step(state: TrainState, loss: torch.Tensor, warmup: bool) -> None:
+def _g_step(state: TrainState, loss: torch.Tensor, warmup: bool, group: Group = None,
+            replicated: bool = False) -> None:
     if not warmup:
         active = trainable_params(state.g, g_trainable)
-        adam_step(state.g_opt, active, mask_grads(_grads(loss, active), state.g_freeze, state.g_prune))
+        grads = _synced_grads(loss, active, group, replicated)
+        adam_step(state.g_opt, active, mask_grads(grads, state.g_freeze, state.g_prune))
     prune_params(state.g, state.g_prune)
 
 
@@ -167,10 +223,12 @@ def _augment(tcfg: TrainConfig, img: torch.Tensor, p: torch.Tensor, draws: Draws
     return augment(img, p, margin=tcfg.ada_margin, transform=(draws.ada_G, draws.ada_C))[0]
 
 
-def d_phase(state: TrainState, tcfg: TrainConfig, real_img: torch.Tensor, draws: Draws, warmup: bool):
+def d_phase(state: TrainState, tcfg: TrainConfig, real_img: torch.Tensor, draws: Draws, warmup: bool,
+            group: Group = None):
     """D step on real_img and a fake batch, with augment both through one
     ADA call at the state's p, then (adaptive p) the p update.  Returns
-    (metrics, the reals the R1 phase takes: the augmented ones)."""
+    (metrics, the reals the R1 phase takes: the augmented ones).  With a
+    process `group`, real_img and draws are this rank's rows."""
     cdt = compute_dtype(tcfg)
     with torch.no_grad():
         fake = _fake(state.g, _latent(state.g, draws), draws, cdt).float()
@@ -178,69 +236,79 @@ def d_phase(state: TrainState, tcfg: TrainConfig, real_img: torch.Tensor, draws:
         if tcfg.augment:
             both = _augment(tcfg, torch.cat([real_img, fake]), state.ada_p, draws)
             real_aug, fake_aug = both[: real_img.shape[0]], both[real_img.shape[0]:]
-    fake_pred, _ = state.d(fake_aug, dtype=cdt)
-    real_pred, _ = state.d(real_aug, dtype=cdt)
+    fake_pred, _ = state.d(fake_aug, dtype=cdt, group=group)
+    real_pred, _ = state.d(real_aug, dtype=cdt, group=group)
     real_pred, fake_pred = real_pred.float(), fake_pred.float()
     loss = d_logistic_loss(real_pred, fake_pred)
-    _d_step(state, loss, warmup)
+    _d_step(state, loss, warmup, group)
     if tcfg.augment and tcfg.augment_p == 0:
         state.ada_p, state.ada_stats, state.r_t = ada_update(
-            state.ada_p, state.ada_stats, state.r_t, real_pred.detach(), tcfg)
-    metrics = {
-        "d": loss.detach(),
-        "real_score": real_pred.detach().mean(),
-        "fake_score": fake_pred.detach().mean(),
-        "ada_p": state.ada_p,
-        "r_t": state.r_t,
-    }
+            state.ada_p, state.ada_stats, state.r_t, real_pred.detach(), tcfg, group)
+    d, real_score, fake_score = reduce_mean(
+        torch.stack([loss.detach(), real_pred.detach().mean(), fake_pred.detach().mean()]), group)
+    metrics = {"d": d, "real_score": real_score, "fake_score": fake_score, "ada_p": state.ada_p, "r_t": state.r_t}
     return metrics, real_aug
 
 
-def r1_phase(state: TrainState, tcfg: TrainConfig, real_img: torch.Tensor, warmup: bool) -> torch.Tensor:
+def r1_phase(state: TrainState, tcfg: TrainConfig, real_img: torch.Tensor, warmup: bool,
+             group: Group = None) -> torch.Tensor:
     """Lazy R1: r1 = mean over the batch of |d sum(D(x)) / dx|^2; D steps on
-    r1 / 2 * r1 * d_reg_every.  Returns the r1 value."""
+    r1 / 2 * r1 * d_reg_every.  Returns the r1 value.  With a process
+    `group`, each rank's input gradient is that of the global sum (the
+    stddev gather sums the cotangents over the ranks)."""
     real = real_img.detach().requires_grad_(True)
-    pred, _ = state.d(real)
+    pred, _ = state.d(real, group=group)
     (grad_real,) = torch.autograd.grad(pred.sum(), real, create_graph=True)
     r1 = grad_real.pow(2).reshape(grad_real.shape[0], -1).sum(dim=1).mean()
-    _d_step(state, tcfg.r1 / 2.0 * r1 * tcfg.d_reg_every, warmup)
-    return r1.detach()
+    _d_step(state, tcfg.r1 / 2.0 * r1 * tcfg.d_reg_every, warmup, group)
+    return reduce_mean(r1.detach(), group)
 
 
-def g_phase(state: TrainState, tcfg: TrainConfig, draws: Draws, warmup: bool, do_ema: bool) -> torch.Tensor:
+def g_phase(state: TrainState, tcfg: TrainConfig, draws: Draws, warmup: bool, do_ema: bool,
+            group: Group = None) -> torch.Tensor:
     """G step on the non-saturating loss, with augment through the ADA warp
     at the state's p; with `do_ema`, the iteration's EMA of G and D.
-    Returns the loss."""
+    Returns the loss.  With a process `group`, draws are this rank's rows."""
     cdt = compute_dtype(tcfg)
     with torch.set_grad_enabled(not warmup):
         fake = _fake(state.g, _latent(state.g, draws), draws, cdt).float()  # ADA and D take f32
         if tcfg.augment:
             fake = _augment(tcfg, fake, state.ada_p, draws)
-        pred, _ = state.d(fake, dtype=cdt)
+        pred, _ = state.d(fake, dtype=cdt, group=group)
         loss = g_nonsaturating_loss(pred.float())
-    _g_step(state, loss, warmup)
+    _g_step(state, loss, warmup, group)
     if do_ema:
         ema(state.g_ema, state.g, tcfg.ema_accum)
         ema(state.d_ema, state.d, tcfg.ema_accum)
-    return loss.detach()
+    return reduce_mean(loss.detach(), group)
 
 
-def path_phase(state: TrainState, tcfg: TrainConfig, draws: Draws, warmup: bool):
+def path_phase(state: TrainState, tcfg: TrainConfig, draws: Draws, warmup: bool, group: Group = None,
+               replicated: bool = False):
     """Lazy path-length step, then the iteration's EMA.  One forward: the
     gradient of sum(fake * noise_img) with respect to the latent keeps its
     graph, and G steps on path_regularize * g_reg_every * penalty.  Returns
-    (penalty, mean path length of the batch)."""
+    (penalty, mean path length of the batch).
+
+    With a process `group`, draws are this rank's rows of the path batch;
+    with `replicated`, every rank holds the whole path batch, computes what
+    one process computes, and takes rank 0's gradients, penalty and mean."""
+    stats_group = None if replicated else group
     with torch.no_grad():
         latent = _latent(state.g, draws)
     latent.requires_grad_(True)
     fake = _fake(state.g, latent, draws)
     (grad_lat,) = torch.autograd.grad((fake * draws.noise_img).sum(), latent, create_graph=True)
-    penalty, new_mean, lengths = path_stats(grad_lat, state.mean_path_length)
-    _g_step(state, tcfg.path_regularize * tcfg.g_reg_every * penalty, warmup)
+    penalty, new_mean, lengths = path_stats(grad_lat, state.mean_path_length, group=stats_group)
+    _g_step(state, tcfg.path_regularize * tcfg.g_reg_every * penalty, warmup, group, replicated)
     ema(state.g_ema, state.g, tcfg.ema_accum)
     ema(state.d_ema, state.d, tcfg.ema_accum)
-    state.mean_path_length = new_mean
-    return penalty.detach(), lengths.detach().mean()
+    out = torch.stack([reduce_mean(penalty.detach(), stats_group),
+                       all_gather_rows(lengths.detach(), stats_group).mean(), new_mean])
+    if replicated:
+        replicate([out], group)
+    state.mean_path_length = out[2].clone()
+    return out[0], out[1]
 
 
 def run_iteration(
@@ -251,12 +319,17 @@ def run_iteration(
     *,
     gen: Optional[torch.Generator] = None,
     draws: Optional[Mapping[str, Draws]] = None,
+    group: Group = None,
 ) -> Dict[str, torch.Tensor]:
     """One iteration i: the phases that fire, each with its draws from
     `draws` ("d", "g", "path") or, where a phase has none there, from
     `sample_draws(gen, ...)` in phase order, each phase's ADA matrices at
     the p it starts from.  Returns the metrics as device tensors (no host
-    sync)."""
+    sync).
+
+    With a process `group`, real_img is this rank's rows of the global
+    batch, and the draws (given or sampled) are the global batch's: each
+    phase takes this rank's rows of them."""
     draws = dict(draws or {})
     gcfg = state.g.cfg
 
@@ -269,21 +342,28 @@ def run_iteration(
 
     warmup = i < tcfg.warmup_iter
     zero = torch.zeros((), device=real_img.device)
-    metrics, real_aug = d_phase(state, tcfg, real_img, phase_draws("d", real_img.shape[0]), warmup)
+    world = world_size(group)
+    d_draws = local_draws(phase_draws("d", real_img.shape[0] * world), group)
+    metrics, real_aug = d_phase(state, tcfg, real_img, d_draws, warmup, group)
 
     metrics["r1"] = zero
     if i % tcfg.d_reg_every == 0:
-        metrics["r1"] = r1_phase(state, tcfg, real_aug, warmup)
+        metrics["r1"] = r1_phase(state, tcfg, real_aug, warmup, group)
 
     # as in rick_tpu: no path phase during warmup, so neither G nor the mean
     # path length moves there
     path_fires = i % tcfg.g_reg_every == 0 and i >= tcfg.warmup_iter
-    metrics["g"] = g_phase(state, tcfg, phase_draws("g", tcfg.batch), warmup, do_ema=not path_fires)
+    g_draws = local_draws(phase_draws("g", tcfg.batch), group)
+    metrics["g"] = g_phase(state, tcfg, g_draws, warmup, do_ema=not path_fires, group=group)
 
     metrics["path"] = metrics["path_length"] = zero
     if path_fires:
         path_batch = max(1, tcfg.batch // tcfg.path_batch_shrink)
-        metrics["path"], metrics["path_length"] = path_phase(state, tcfg, phase_draws("path", path_batch), warmup)
+        replicated = group is not None and path_batch % world != 0
+        p_draws = phase_draws("path", path_batch)
+        if not replicated:
+            p_draws = local_draws(p_draws, group)
+        metrics["path"], metrics["path_length"] = path_phase(state, tcfg, p_draws, warmup, group, replicated)
     metrics["mean_path_length"] = state.mean_path_length
     return metrics
 

@@ -37,10 +37,16 @@ def test_flags_are_rick_tpus():
 
 @pytest.mark.parametrize("flags", [["--n_devices", "2"], ["WORLD_SIZE=2"]])
 def test_unported_flags_raise_before_any_work(flags, tmp_path, monkeypatch):
+    """Multi-GPU runs are ported (tests/test_torch_dist_cli.py runs 2
+    ranks); what still raises before any work is a `--n_devices` that is
+    neither 0 nor the launch's world size: 2 in a single process, and 3 in
+    a launch of WORLD_SIZE=2."""
+    for v in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+        monkeypatch.delenv(v, raising=False)
     if flags == ["WORLD_SIZE=2"]:
         monkeypatch.setenv("WORLD_SIZE", "2")
-        flags = []
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        flags = ["--n_devices", "3"]
+    with pytest.raises(ValueError, match="torchrun"):
         train.main(flags + ["--output_root", str(tmp_path / "out")], device="cpu")
     assert not (tmp_path / "out").exists()
 

@@ -160,10 +160,14 @@ def test_generate_returns_host_images_in_store_chunks(setup):
 
 
 def test_unported_options_raise(setup):
-    """The sharded evaluation still raises; P&R and intra-LPIPS are ported
-    (tests/test_torch_scores.py), and so is a bf16 generation
-    (tests/test_torch_bf16.py)."""
+    """Nothing raises any longer: the sharded evaluation takes a process
+    `group` (rick_tpu's `mesh=`; 2 ranks in tests/test_torch_dist_eval.py),
+    and without one, or over one rank, the evaluation is the single
+    process's; P&R and intra-LPIPS are ported (tests/test_torch_scores.py),
+    and so is a bf16 generation (tests/test_torch_bf16.py)."""
     s = setup
-    with pytest.raises(NotImplementedError):
-        Evaluator(s["gcfg"], fid_real_samples=s["real"], **_kw(s, mesh=object()))
-    assert Evaluator(s["gcfg"], fid_real_samples=s["real"], **_kw(s, gen_dtype=torch.bfloat16)).gen_dtype == torch.bfloat16
+    assert Evaluator(s["gcfg"], fid_real_samples=s["real"], **_kw(s, group=None)).group is None
+    with pytest.raises(TypeError):
+        Evaluator(s["gcfg"], fid_real_samples=s["real"], **_kw(s, mesh=object()))  # the keyword is `group`
+    ev = Evaluator(s["gcfg"], fid_real_samples=s["real"], **_kw(s, gen_dtype=torch.bfloat16))
+    assert ev.gen_dtype == torch.bfloat16

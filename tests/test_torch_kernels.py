@@ -335,7 +335,8 @@ def test_import_leaves_jax_triton_and_cuda_alone():
         "import rick_tpu_torch.train, rick_tpu_torch.utils, rick_tpu_torch.metrics\n"
         "import rick_tpu_torch.data, rick_tpu_torch.cli, rick_tpu_torch.cli.train, rick_tpu_torch.ckpt.async_io\n"
         "import rick_tpu_torch.cli.fid, rick_tpu_torch.cli.kid, rick_tpu_torch.cli.precision_recall\n"
-        "import rick_tpu_torch.cli.intra_lpips\n"
+        "import rick_tpu_torch.cli.intra_lpips, rick_tpu_torch.cli.prepare_data, rick_tpu_torch.cli.convert_lmdb\n"
+        "import rick_tpu_torch.dist, rick_tpu_torch.data.prepare, rick_tpu_torch.tools.dryrun_multigpu\n"
         "bad = [m for m in ('jax', 'triton', 'PIL', 'cv2') if m in sys.modules]\n"
         "bad += [m for m in sys.modules if m.startswith('rick_tpu.') or m == 'rick_tpu']\n"
         "assert not bad, bad\n"
@@ -347,11 +348,14 @@ def test_import_leaves_jax_triton_and_cuda_alone():
 
 
 # the environment variables the package may read: each picks a metric's
-# weights or arithmetic, as in rick_tpu, and none of them a kernel; and those
-# the train CLI reads as rick_tpu's does (the cache eviction, the best.pt
-# throttle) or to refuse a multi-process launch
+# weights or arithmetic, as in rick_tpu, and none of them a kernel; those the
+# train CLI reads as rick_tpu's does (the cache eviction, the best.pt
+# throttle); and torchrun's, which place a rank in its launch
+# (`dist.initialize_multihost`; MASTER_ADDR and MASTER_PORT are read by
+# torch's own env:// rendezvous)
 METRIC_ENV = {"RICK_INCEPTION_WEIGHTS", "RICK_VGG16_WEIGHTS", "RICK_LPIPS_WEIGHTS", "RICK_FID_HOST_SQRTM"}
-CLI_ENV = {"RICK_CLEAR_REAL_CACHE", "RICK_BEST_SAVE_INTERVAL_S", "WORLD_SIZE"}
+CLI_ENV = {"RICK_CLEAR_REAL_CACHE", "RICK_BEST_SAVE_INTERVAL_S", "WORLD_SIZE", "RANK", "LOCAL_RANK",
+           "LOCAL_WORLD_SIZE"}
 
 
 def test_package_has_no_env_gates_and_no_jax():
