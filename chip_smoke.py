@@ -11,7 +11,10 @@ Phases, each raising on failure:
      stages x 3 tiles); K4 must not spill and its conv must run on the
      tensor cores
   2. per forward kernel: compare with its plain PyTorch version at every shape
-     the 256px G/D forward gives it (batch 4, TF32 off), and time both
+     the 256px G/D forward gives it (batch 4, TF32 off), and time both: the
+     kernel's device time (torch.profiler, `device_ms`) and CUDA events
+     around 20 calls of its wrapper (`ms_with_host`, which at small shapes
+     is the wrapper's host time), beside its bound (`tools/roofline.py`)
   3. the generation slice: seeded 256px G and D on the card, saved and loaded
      back as a rosinality {g, g_ema, d} checkpoint, then sample_images on 25
      fixed latents, a batch-100 random-noise generation and D on 16 of the
@@ -92,9 +95,14 @@ Phases, each raising on failure:
      `cli.precision_recall` on two .npy sets of 1000 images
  17. bf16 (rick_tpu's `--bf16` and `Evaluator(gen_dtype=bf16)`: bf16 in G's
      conv1 and D's from-RGB conv only): (a) K1-bf16 at (2,128,256,256) and
-     K3-bf16 at (2,512,4,4), noise batch 2 and 1, against their plain
-     versions and timed (K3-bf16 also at (4,128,256,256)), and their first
-     grads against plain autograd; (b) a seeded bf16 state, run_iteration
+     K3-bf16 at (2,512,4,4), noise batch 2 and 1, then at shapes that reach
+     their other load paths and K3-bf16 at (4,128,256,256), against their
+     plain versions and timed, each beside its launch floor (an empty
+     kernel at its grid, `rick_empty_launch`); each output against the
+     row-per-block kernel it replaced (bitwise equality printed; both timed
+     in turns at the main-path and streaming shapes); the kernel wrappers'
+     host time per call; their first grads against plain autograd; (b) a
+     seeded bf16 state, run_iteration
      at i = 0, 1, 4, 16: finite, both bf16 instantiations and K1-K3
      launched; (c) the bf16 D and G phases on the card against the CPU, as
      phase 8, per tensor in norm within 1e-1; (d) D and G in f32 and bf16
@@ -125,6 +133,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import ctypes
 import hashlib
 import io
 import json
@@ -325,6 +334,61 @@ def cuda_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def queued_ms(fn, iters: int = 20) -> float:
+    """Mean device time per call of fn by CUDA events, the launches queued
+    behind a spin kernel (`torch.cuda._sleep`, ~10 ms) so that the host's
+    enqueue time is hidden: the kernels' time back to back."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, kernel: str, iters: int = 20) -> float:
+    """Mean device time of one launch of the CUDA kernel whose name holds
+    `kernel` (fn launches it once a call), under torch.profiler over `iters`
+    calls: the kernel's own time, the wrapper's host time left out.  The
+    mean is over the launches the profiler recorded: now and then it delivers
+    only some of a session's kernel records, or none, a few sessions in a
+    row; a session with none is run again, up to ten times, and then the
+    time is taken by `queued_ms` (printed as such)."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(10):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        records = [e for e in prof.key_averages() if kernel in e.key and e.device_time_total > 0]
+        launches = sum(e.count for e in records)
+        if launches:
+            return sum(e.device_time_total for e in records) / launches / 1000.0
+    ms = queued_ms(fn, iters)
+    print(f"  ({kernel}: the profiler delivered no kernel records in 10 sessions; {ms:.5f} ms by CUDA events "
+          "behind a spin kernel)", flush=True)
+    return ms
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds per call of fn, enqueue only: the host clock around
+    `calls` calls with no synchronize inside (after one warm-up call)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def rel_err(got: torch.Tensor, ref: torch.Tensor):
     d = float((got.double() - ref.double()).abs().max())
     return d, d / max(float(ref.abs().max()), 1e-30)
@@ -337,16 +401,23 @@ def norm_err(got: torch.Tensor, ref: torch.Tensor) -> float:
     return d / r if r > 0 else (0.0 if d == 0 else math.inf)
 
 
-def case(name, label, kern, plain, nbytes, flops, tf32_flops=0):
+def case(name, label, kern, plain, nbytes, flops, tf32_flops=0, *, kernel: str, floor=None, **extra):
     """A kernel check: `flops` on the CUDA cores (f32), `tf32_flops` on the
-    tensor cores (TF32), both as the bound counts them."""
-    return dict(name=name, label=label, kern=kern, plain=plain, nbytes=nbytes, flops=flops, tf32_flops=tf32_flops)
+    tensor cores (TF32), both as the bound counts them; `kernel` the CUDA
+    kernel's name (or a part of it) as the profiler shows it; `floor` None or
+    a call that launches the empty kernel with the case's grid (the launch
+    floor the bound counts)."""
+    return dict(name=name, label=label, kern=kern, plain=plain, nbytes=nbytes, flops=flops, tf32_flops=tf32_flops,
+                kernel=kernel, floor=floor, **extra)
 
 
 def run_cases(cases) -> dict:
-    """Check every case against its plain version and time both; per kernel,
-    the largest error and the times and bound at its costliest shape (by
-    plain time)."""
+    """Check every case against its plain version and time both: the
+    kernel's device time (torch.profiler), and by CUDA events around 20
+    calls of the wrapper (`ms_with_host`: at small shapes that is the
+    wrapper's host time); the bound by bytes and operations, and with the
+    launch floor where the case gives one.  Per kernel, the largest error
+    and the row of its costliest shape (by plain time)."""
     rows = []
     with torch.inference_mode():
         for c in cases:
@@ -356,14 +427,19 @@ def run_cases(cases) -> dict:
             require(got.shape == ref.shape, f"{name} {label}: shape {got.shape} != {ref.shape}")
             require(bool(torch.isfinite(got).all()), f"{name} {label}: non-finite output")
             abs_err, rel = rel_err(got, ref)
-            ms, plain_ms = cuda_ms(c["kern"]), cuda_ms(c["plain"])
+            ms = device_ms(c["kern"], c["kernel"])
+            ms_with_host, plain_ms = cuda_ms(c["kern"]), cuda_ms(c["plain"])
             bound_ms, bound_by = bound(c["nbytes"], c["flops"], c["tf32_flops"])
-            print(f"  {name:18s} {label:44s} max_abs_err={abs_err:.3e} rel={rel:.3e} "
-                  f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}, "
-                  f"{bound_ms / ms:.0%} of it)", flush=True)
+            floor_ms = device_ms(c["floor"], "empty_kernel") if c["floor"] else None
+            least_ms, least_by = bound(c["nbytes"], c["flops"], c["tf32_flops"], floor_ms or 0.0)
+            floor = f" floor_ms={floor_ms:.5f}" if floor_ms is not None else ""
+            print(f"  {name:21s} {label:44s} max_abs_err={abs_err:.3e} rel={rel:.3e} device_ms={ms:.5f} "
+                  f"ms_with_host={ms_with_host:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by})"
+                  f"{floor}; {least_ms / ms:.0%} of {least_ms:.5f} ({least_by})", flush=True)
             require(rel <= KERNEL_TOL[name], f"{name} {label}: rel err {rel:.3e} > {KERNEL_TOL[name]}")
-            rows.append(dict(kernel=name, shape=label, max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
-                             bound_ms=bound_ms, bound_by=bound_by))
+            rows.append(dict(kernel=name, shape=label, max_abs_err=abs_err, ms=ms, ms_with_host=ms_with_host,
+                             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, launch_floor_ms=floor_ms,
+                             share=least_ms / ms))
             del got, ref
     per_kernel = {}
     for name in {r["kernel"] for r in rows}:
@@ -395,7 +471,8 @@ def forward_cases(gen: torch.Generator):
         x = randn(*shape)
         b = randn(shape[-1] if len(shape) == 2 else shape[1], scale=0.1)
         cases.append(case("fused_bias_act", str(shape), lambda x=x, b=b: fused_bias_act(x, b),
-                          lambda x=x, b=b: fused_bias_act_ref(x, b), 4 * (2 * x.numel() + b.numel()), 3 * x.numel()))
+                          lambda x=x, b=b: fused_bias_act_ref(x, b), 4 * (2 * x.numel() + b.numel()), 3 * x.numel(),
+                          kernel="fba_lastdim" if len(shape) == 2 else "fba_rows"))
     # K3: the 7 non-upsample StyledConvs, noise batch B (fresh) and 1 (buffers)
     for C, R in [(512, 4), (512, 8), (512, 16), (512, 32), (512, 64), (256, 128), (128, 256)]:
         out, demod, bias = randn(B, C, R, R), uniform(B, C), randn(C, scale=0.1)
@@ -405,7 +482,7 @@ def forward_cases(gen: torch.Generator):
             nbytes = 4 * (2 * out.numel() + demod.numel() + nb * R * R + C + 1)
             cases.append(case("modconv_epilogue", f"{(B, C, R, R)} noise batch {nb}",
                               lambda a=a: modconv_epilogue(*a), lambda a=a: modconv_epilogue_ref(*a),
-                              nbytes, 6 * out.numel()))
+                              nbytes, 6 * out.numel(), kernel="epi_rows"))
     # K4: the 6 upsample StyledConvs (input H, Cin -> Cout)
     for H, cin, cout in [(4, 512, 512), (8, 512, 512), (16, 512, 512), (32, 512, 512),
                          (64, 512, 256), (128, 256, 128)]:
@@ -422,7 +499,7 @@ def forward_cases(gen: torch.Generator):
             nbytes = 4 * (xs.numel() + w.numel() + demod.numel() + nb * 4 * H * H + cout + y_numel)
             cases.append(case("convt_blur_act", f"{(B, cin, H, H)}->{cout} noise batch {nb}",
                               lambda a=a: convt_blur_act(*a), lambda a=a: convt_blur_act_ref(*a), nbytes, flops,
-                              tf32_flops))
+                              tf32_flops, kernel="convt_blur_act_kernel"))
     return cases
 
 
@@ -558,9 +635,10 @@ def k2_cases(gen: torch.Generator):
         b = torch.randn(shape[-1] if len(shape) == 2 else shape[1], generator=gen, device=DEV)
         n = g.numel()
         cases.append(case("fused_bias_act_bwd", f"{shape}", lambda g=g, y=y: fused_bias_act_bwd(g, y),
-                          lambda g=g, y=y: fused_bias_act_bwd_ref(g, y), 4 * 3 * n, 2 * n))
+                          lambda g=g, y=y: fused_bias_act_bwd_ref(g, y), 4 * 3 * n, 2 * n, kernel="fba_bwd"))
         cases.append(case("fused_bias_act_bwd", f"{shape} with bias", lambda g=g, y=y, b=b: fused_bias_act_bwd(g, y, b),
-                          lambda g=g, y=y, b=b: fused_bias_act_bwd_ref(g, y, b), 4 * (3 * n + b.numel()), 3 * n))
+                          lambda g=g, y=y, b=b: fused_bias_act_bwd_ref(g, y, b), 4 * (3 * n + b.numel()), 3 * n,
+                          kernel="fba_bwd"))
     return cases
 
 
@@ -1706,43 +1784,142 @@ BF16_EVAL_TOL = 5e-2  # bf16 vs f32 generation, activations of max|ref|: a bf16 
 BF16_CLI_FLAGS = ADA_CLI_FLAGS[:-3] + ["--bf16", "--exp", "bf16"]  # phase 15 (e)'s run, --bf16 for --augment
 
 
+# the bf16 entry points' kernels as the profiler names them, and the
+# row-per-block design each replaced (kept in csrc/ as their yardstick: the
+# same arithmetic, so bitwise equal outputs are expected)
+BF16_KERNELS = {"fused_bias_act_bf16": "fba_bf16_flat", "modconv_epilogue_bf16": "epi_bf16_flat"}
+BF16_ROWS = {"fused_bias_act_bf16": ("rick_fused_bias_act_bf16_rows", "fba_rows"),
+             "modconv_epilogue_bf16": ("rick_modconv_epilogue_bf16_rows", "epi_rows")}
+
+
+def bf16_entry(name: str, args: tuple, rows: bool = False, dims=None) -> torch.Tensor:
+    """One launch, not counted, of K1-bf16's or K3-bf16's entry point on the
+    wrapper's inputs `args` (default slope and gain), or with `rows` of the
+    row-per-block kernel it replaced; `dims` None or a ctypes int[3] that
+    receives the flat kernel's grid x, grid y and threads.  Returns y."""
+    lib, stream = _build.lib(), _build.stream_ptr(args[0].device)
+    y = torch.empty_like(args[0], dtype=torch.float32)
+    act = (0.2, math.sqrt(2.0), stream)
+    if name == "fused_bias_act_bf16":
+        x, b = args
+        inner = 1 if x.ndim == 2 else math.prod(x.shape[2:])
+        c_args = (x.data_ptr(), b.data_ptr(), y.data_ptr(), x.numel(), x.shape[-1] if x.ndim == 2 else x.shape[1],
+                  inner) + act
+    else:
+        out, demod, noise, nw, bias = args
+        bsz, c, h, w = out.shape
+        c_args = (out.data_ptr(), demod.data_ptr(), noise.data_ptr(), nw.data_ptr(), bias.data_ptr(), y.data_ptr(),
+                  bsz, c, h * w, int(noise.shape[0] == bsz)) + act
+    entry = getattr(lib, BF16_ROWS[name][0] if rows else f"rick_{name}")
+    _build.check(entry(*c_args) if rows else entry(*c_args, dims), name)
+    return y
+
+
+def bf16_case(name: str, label: str, args: tuple, turns: bool = False):
+    """A case of K1-bf16 or K3-bf16 on `args`, with its launch floor: the
+    empty kernel at the grid the entry point reports for these inputs;
+    `turns`: time it against the row-per-block kernel in turns."""
+    dims = (ctypes.c_int * 3)()
+    bf16_entry(name, args, dims=dims)
+    gx, gy, threads = dims
+    floor = lambda: _build.lib().rick_empty_launch(gx, gy, threads, _build.stream_ptr(args[0].device))  # noqa: E731
+    x = args[0]
+    if name == "fused_bias_act_bf16":
+        c = x.shape[-1] if x.ndim == 2 else x.shape[1]
+        return case(name, label, lambda: fused_bias_act(*args), lambda: fused_bias_act_ref(*args),
+                    fused_bias_act_bytes(x.numel(), c, 2), 3 * x.numel(), kernel=BF16_KERNELS[name], floor=floor,
+                    args=args, turns=turns)
+    bsz, c, h, w = x.shape
+    return case(name, label, lambda: modconv_epilogue(*args), lambda: modconv_epilogue_ref(*args),
+                modconv_epilogue_bytes(bsz, c, h * w, args[2].shape[0], 2), 6 * x.numel(), kernel=BF16_KERNELS[name],
+                floor=floor, args=args, turns=turns)
+
+
 def bf16_kernel_cases(gen: torch.Generator):
-    """K1-bf16 at D's from-RGB activation of the 256px batch-2 bf16 phases;
-    K3-bf16 at G's conv1 (noise batch 2, fresh, and 1, the buffers), and at
-    (4,128,256,256) for its time on a streaming shape."""
+    """K1-bf16 at D's from-RGB activation of the 256px batch-2 bf16 phases
+    and K3-bf16 at G's conv1 (noise batch 2, fresh, and 1, the buffers): the
+    main-path shapes.  Then shapes that reach each of their other paths:
+    8-byte loads (inner % 8 == 4), single elements (odd inner; a bf16 input
+    2 bytes past a 16-byte boundary, a contiguous slice of a larger buffer;
+    K1's 2-D (N, C) layout), and K3-bf16 at the streaming shape
+    (4,128,256,256).  Returns (main, others)."""
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=DEV) * scale
 
-    x, b = randn(2, 128, SIZE, SIZE).bfloat16(), randn(128, scale=0.1)
-    main = [case("fused_bias_act_bf16", str(tuple(x.shape)), lambda: fused_bias_act(x, b),
-                 lambda: fused_bias_act_ref(x, b), fused_bias_act_bytes(x.numel(), 128, 2), 3 * x.numel())]
-    streaming = []
-    for shape, nbs, cases in (((2, 512, 4, 4), (2, 1), main), ((4, 128, SIZE, SIZE), (4,), streaming)):
-        bsz, c, r, _ = shape
-        out, bias = randn(*shape).bfloat16(), randn(c, scale=0.1)
-        demod = (torch.rand((bsz, c), generator=gen, device=DEV) + 0.5).bfloat16()
-        nw = torch.full((1,), 0.3, device=DEV).bfloat16()
-        for nb in nbs:
-            a = (out, demod, randn(nb, 1, r, r).bfloat16(), nw, bias)
-            cases.append(case("modconv_epilogue_bf16", f"{shape} noise batch {nb}", lambda a=a: modconv_epilogue(*a),
-                              lambda a=a: modconv_epilogue_ref(*a),
-                              modconv_epilogue_bytes(bsz, c, r * r, nb, 2), 6 * out.numel()))
-    return main, streaming
+    def bf16(*shape, misaligned=False):
+        if not misaligned:
+            return randn(*shape).bfloat16()
+        buf = randn(math.prod(shape) + 1).bfloat16()
+        t = buf[1:].view(shape)
+        require(t.data_ptr() % 16 == 2, f"the misaligned view starts at {t.data_ptr() % 16} past 16 bytes")
+        return t
+
+    def fba(shape, misaligned=False):
+        return bf16(*shape, misaligned=misaligned), randn(shape[-1] if len(shape) == 2 else shape[1], scale=0.1)
+
+    def epi(shape, nb, misaligned=False):
+        bsz, c, h, w = shape
+        return (bf16(*shape, misaligned=misaligned), (torch.rand((bsz, c), generator=gen, device=DEV) + 0.5).bfloat16(),
+                bf16(nb, 1, h, w), torch.full((1,), 0.3, device=DEV).bfloat16(), randn(c, scale=0.1))
+
+    k1, k3 = "fused_bias_act_bf16", "modconv_epilogue_bf16"
+    main = [bf16_case(k1, str((2, 128, SIZE, SIZE)), fba((2, 128, SIZE, SIZE)), turns=True)]
+    main += [bf16_case(k3, f"(2, 512, 4, 4) noise batch {nb}", epi((2, 512, 4, 4), nb), turns=True) for nb in (2, 1)]
+    others = [bf16_case(k1, "(2, 3, 6, 6) 8-byte loads", fba((2, 3, 6, 6))),
+              bf16_case(k1, "(3, 5, 7, 9) odd inner", fba((3, 5, 7, 9))),
+              bf16_case(k1, "(2, 8, 16, 16) x 2 bytes past 16", fba((2, 8, 16, 16), misaligned=True)),
+              bf16_case(k1, "(4, 32) 2-D", fba((4, 32))),
+              bf16_case(k3, "(2, 6, 6, 6) noise batch 2 8-byte loads", epi((2, 6, 6, 6), 2)),
+              bf16_case(k3, "(2, 3, 5, 7) noise batch 2 odd hw", epi((2, 3, 5, 7), 2)),
+              bf16_case(k3, "(2, 3, 5, 7) noise batch 1 odd hw", epi((2, 3, 5, 7), 1)),
+              bf16_case(k3, "(2, 512, 4, 4) noise batch 2 out 2 bytes past 16", epi((2, 512, 4, 4), 2, misaligned=True)),
+              bf16_case(k3, f"(4, 128, {SIZE}, {SIZE}) noise batch 4", epi((4, 128, SIZE, SIZE), 4), turns=True)]
+    return main, others
 
 
-def device_ms(fn, kernel: str, iters: int = 20) -> float:
-    """Mean device time per call of fn of the CUDA kernels whose name holds
-    `kernel`, under torch.profiler (the wrapper's host time left out)."""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.device_time_total for e in prof.key_averages() if kernel in e.key)
-    require(total_us > 0, f"the profiler shows no device time of {kernel}")
-    return total_us / iters / 1000.0
+def bf16_against_rows(cases) -> dict:
+    """Each case's output against the row-per-block kernel's on the same
+    inputs (bitwise equality printed; the same arithmetic, so expected),
+    and, at the main-path and streaming shapes, both kernels' device time
+    in turns (rows, flat, flat, rows).  Returns {label: (None or (flat ms,
+    rows ms), bitwise equal)}."""
+    out = {}
+    with torch.inference_mode():
+        for c in cases:
+            name, args = c["name"], c["args"]
+            same = torch.equal(c["kern"](), bf16_entry(name, args, rows=True))
+            times, turns = None, ""
+            if c["turns"]:
+                runs = {"rows": [], "flat": []}
+                for turn in ("rows", "flat", "flat", "rows"):
+                    if turn == "rows":
+                        runs[turn].append(device_ms(lambda: bf16_entry(name, args, rows=True), BF16_ROWS[name][1]))
+                    else:
+                        runs[turn].append(device_ms(c["kern"], c["kernel"]))
+                times = (float(np.mean(runs["flat"])), float(np.mean(runs["rows"])))
+                turns = (f"; device ms flat {[round(t, 5) for t in runs['flat']]}, rows "
+                         f"{[round(t, 5) for t in runs['rows']]} (in turns rows, flat, flat, rows)")
+            print(f"  {name:21s} {c['label']:44s} bitwise equal to the row-per-block kernel: {same}{turns}", flush=True)
+            out[c["label"]] = (times, same)
+    return out
+
+
+def wrapper_host_us() -> None:
+    """The kernel wrappers' host microseconds per call (enqueue time, no
+    synchronize inside 200 calls) at small main-path shapes."""
+    gen = torch.Generator(device=DEV).manual_seed(89)
+    x, b = torch.randn((2, 512, 4, 4), generator=gen, device=DEV), torch.randn(512, generator=gen, device=DEV)
+    demod = torch.rand((2, 512), generator=gen, device=DEV) + 0.5
+    noise, nw = torch.randn((2, 1, 4, 4), generator=gen, device=DEV), torch.ones(1, device=DEV)
+    xb, epi16 = x.bfloat16(), tuple(t.bfloat16() for t in (x, demod, noise, nw))
+    calls = {"fused_bias_act": lambda: fused_bias_act(x, b), "fused_bias_act_bf16": lambda: fused_bias_act(xb, b),
+             "fused_bias_act_bwd": lambda: fused_bias_act_bwd(x, x, b),
+             "modconv_epilogue": lambda: modconv_epilogue(x, demod, noise, nw, b),
+             "modconv_epilogue_bf16": lambda: modconv_epilogue(*epi16, b)}
+    with torch.inference_mode():
+        us = {k: host_us(f) for k, f in calls.items()}
+    print("  wrappers' host time per call at (2, 512, 4, 4), enqueue only (200 calls, no synchronize): "
+          + ", ".join(f"{k} {v:.1f} us" for k, v in us.items()), flush=True)
 
 
 def bf16_autograd() -> dict:
@@ -1899,17 +2076,18 @@ def bf16_cli_run(card: str, root: str) -> dict:
 
 def bf16_phase(g_ema, ev, incp, root: str, card: str) -> tuple:
     """Phase 17.  Returns (per-kernel check rows, launches by run)."""
-    print(f"  (a) K1-bf16 and K3-bf16 vs plain at the bf16 phases' shapes (and K3-bf16 at (4,128,256,256)), "
-          f"TF32 off, tolerance {BF16_KERNEL_TOL} * max|ref|; first grads vs plain autograd", flush=True)
-    main_cases, streaming = bf16_kernel_cases(torch.Generator(device=DEV).manual_seed(88))
+    print(f"  (a) K1-bf16 and K3-bf16 vs plain at the bf16 phases' shapes, then at shapes that reach their other "
+          f"paths and K3-bf16 at (4,128,256,256), TF32 off, tolerance {BF16_KERNEL_TOL} * max|ref|; each against "
+          "the row-per-block kernel it replaced; the wrappers' host time; first grads vs plain autograd", flush=True)
+    main_cases, other_cases = bf16_kernel_cases(torch.Generator(device=DEV).manual_seed(88))
     per_kernel = run_cases(main_cases)
-    run_cases(streaming)
-    k3 = per_kernel["modconv_epilogue_bf16"]
-    with torch.inference_mode():
-        k3["device_ms"] = device_ms(next(c["kern"] for c in main_cases if c["label"] == k3["shape"]), "epi_rows")
-    print(f"  modconv_epilogue_bf16 {k3['shape']}: device time {k3['device_ms']:.5f} ms (torch.profiler) against "
-          f"{k3['ms']:.4f} ms by CUDA events (the wrapper's host time) and a bound of {k3['bound_ms']:.1e} ms, "
-          "below a launch's latency", flush=True)
+    run_cases(other_cases)
+    vs_rows = bf16_against_rows(main_cases + other_cases)
+    for name in BF16_SOURCES:
+        k = per_kernel[name]
+        times, k["bitwise_rows"] = vs_rows[k["shape"]]
+        k["rows_ms"] = times[1]
+    wrapper_host_us()
     grad_err = bf16_autograd()
     print(f"  grads vs plain autograd, max abs err: {grad_err}", flush=True)
     for name, err in grad_err.items():
@@ -2374,6 +2552,7 @@ def main() -> int:
             name=name, route="cuda", source=source, replaces=replaces, launches=sum(by_run.values()),
             max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], library_ms=None, shape=k["shape"], launches_by_run=by_run,
+            ms_with_host=k["ms_with_host"],
         ))
     kernels += k5["entries"]
     for name, (source, replaces) in BF16_SOURCES.items():
@@ -2383,7 +2562,8 @@ def main() -> int:
             name=name, route="cuda", source=source, replaces=replaces, launches=sum(by_run.values()),
             max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], library_ms=None, shape=k["shape"], launches_by_run=by_run,
-            **({"device_ms": k["device_ms"]} if "device_ms" in k else {}),
+            ms_with_host=k["ms_with_host"], launch_floor_ms=k["launch_floor_ms"], share_with_floor=k["share"],
+            rows_ms=k["rows_ms"], bitwise_rows=k["bitwise_rows"],
         ))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

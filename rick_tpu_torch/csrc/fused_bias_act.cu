@@ -25,12 +25,40 @@
 // takes its bias on the last dim, one thread per element; those are the
 // style-MLP and head activations, a few thousand elements.
 //
-// K1 has a second instantiation, rick_fused_bias_act_bf16: x bf16, bias and
-// y f32.  It is what rick_tpu computes where a bf16 layer meets its f32
-// activation bias (the first conv of D under --bf16): JAX promotes
-// x + bias to f32, so the activation and y are f32.  Each thread reads four
-// bf16 (8 bytes) and writes a float4: 6 bytes per element.  K2 has no bf16
-// form: on that path y and its cotangent are f32.
+// K1-bf16, rick_fused_bias_act_bf16 (kernel fba_bf16_flat): x bf16, bias
+// and y f32.  It replaces the same Pallas call (_fba_fwd_kernel via _fba_call)
+// where rick_tpu's --bf16 reaches it: a bf16 layer meeting its f32
+// activation bias (D's from-RGB conv), where JAX promotes x + bias to f32,
+// so the activation and y are f32.  K2 has no bf16 form: on that path y and
+// its cotangent are f32.
+//
+// Bound: device memory, 6 bytes an element (2 read, 4 written).  At D's
+// from-RGB shape (2,128,256,256) that is 100.7 MB, 0.030 ms at 3.35 TB/s.
+// So the kernel only has to stream, and the design is about keeping enough
+// bytes in flight and every transaction whole: x is walked flat; each thread
+// loads a bf16x8 (16 bytes) and issues U = 2 such loads (and their bias
+// loads) before any store; a block's loads of one round are contiguous (a
+// tile of 2 x 256 vectors, 8 KB of x), and each warp trades its outputs by
+// shuffles so that both of its float4 stores write 512 contiguous bytes (a
+// thread's own two float4 would leave each store instruction writing half
+// of every 32-byte sector).  The grid is at most 8 whole waves of the
+// blocks the occupancy allows, walked grid-stride; a thread's bias index is
+// its vector's channel, kept as (offset, channel) and advanced with adds
+// (rick::FlatPos), one division at the thread's start: a vector never
+// straddles a row when inner % 8 == 0.  On the H100, a walk over one wave
+// of persistent blocks, or a thread's loads strided by the whole grid, ran
+// slower than these contiguous tiles, which keep the addresses in flight at
+// once close together.  Inputs with fewer vectors than one block of
+// 256 on every SM take one vector per thread in blocks of whole warps spread
+// over the SMs, where the launch, not the bytes, sets the time.  Other
+// layouts take the same kernel with 8-byte loads (inner % 4 == 0 and x
+// 8-byte aligned) or single elements (odd inner, a misaligned x, the 2-D
+// (N, C) layout as inner = 1).
+//
+// rick_fused_bias_act_bf16_rows keeps the row-per-block design
+// (fba_rows<bf16x4, float4>) that came before it, as the yardstick
+// chip_smoke.py holds the flat kernel to (bitwise equal outputs, time); no
+// wrapper calls it.
 
 #include "common.cuh"
 
@@ -92,6 +120,74 @@ void launch_fba(const void* x, const float* b, void* y, long long n, int C, long
         static_cast<const TS*>(x), b, static_cast<float*>(y), (int)rows, C, (int)inner, slope,
         scale);
   }
+}
+
+// K1-bf16: see the note at the top.  V bf16 per load; y[i] = fba(x[i],
+// bias[channel of i]).  U = 1: one vector per thread, no loop (few
+// vectors).  U > 1: U loads in flight per thread, the loop running while
+// the thread's warp has work, so that every lane reaches the warp's
+// shuffles.
+template <int V, int U>
+__global__ void __launch_bounds__(rick::kFlatThreads)
+    fba_bf16_flat(const __nv_bfloat16* __restrict__ x, const float* __restrict__ bias, float* __restrict__ y,
+                  long long n, long long inner, int C, rick::FlatPos in_step, rick::FlatPos jump, float slope,
+                  float scale) {
+  using Vec = rick::BfVec<V>;
+  if constexpr (U == 1) {
+    const long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * V;
+    if (i >= n) return;
+    const typename Vec::T raw = Vec::load(x, i);
+    const float b = __ldg(bias + rick::flat_split(i, inner, C).c);
+    float f[V];
+    Vec::widen(raw, f);
+#pragma unroll
+    for (int k = 0; k < V; ++k) f[k] = fba(f[k], b, slope, scale);
+    Vec::store(y, i, n, f);
+  } else {
+    const long long tile = (long long)U * blockDim.x * V, lane_off = (long long)(threadIdx.x & 31) * V;
+    long long i = blockIdx.x * tile + (long long)threadIdx.x * V;
+    rick::FlatPos p = rick::flat_split(i, inner, C);
+    for (; i - lane_off < n; i += gridDim.x * tile) {
+      typename Vec::T raw[U];
+      float b[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const long long e = i + (long long)u * blockDim.x * V;
+        raw[u] = e < n ? Vec::load(x, e) : typename Vec::T();
+        b[u] = e < n ? __ldg(bias + p.c) : 0.f;
+        rick::flat_advance(p, in_step, inner, C);
+      }
+      rick::flat_advance(p, jump, inner, C);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float f[V];
+        Vec::widen(raw[u], f);
+#pragma unroll
+        for (int k = 0; k < V; ++k) f[k] = fba(f[k], b[u], slope, scale);
+        Vec::store_warp(y, i + (long long)u * blockDim.x * V, n, f);
+      }
+    }
+  }
+}
+
+template <int V>
+void launch_fba_bf16_flat(const void* x, const float* b, void* y, long long n, int C, long long inner, float slope,
+                          float scale, cudaStream_t s, int* launch) {
+  const rick::FlatLaunch l = rick::flat_launch<&fba_bf16_flat<V, rick::kFlatLoads>>(n, V, inner, C);
+  const auto kernel = l.loads == 1 ? &fba_bf16_flat<V, 1> : &fba_bf16_flat<V, rick::kFlatLoads>;
+  kernel<<<l.blocks, l.threads, 0, s>>>(static_cast<const __nv_bfloat16*>(x), b, static_cast<float*>(y), n, inner, C,
+                                       l.in_step, l.jump, slope, scale);
+  if (launch) launch[0] = l.blocks, launch[1] = 1, launch[2] = l.threads;
+}
+
+void launch_fba_bf16(const void* x, const float* b, void* y, long long n, int C, long long inner, float slope,
+                     float scale, cudaStream_t s, int* launch) {
+  if (inner % 8 == 0 && rick::aligned16(x) && rick::aligned16(y))
+    launch_fba_bf16_flat<8>(x, b, y, n, C, inner, slope, scale, s, launch);
+  else if (inner % 4 == 0 && rick::aligned(x, 8) && rick::aligned16(y))
+    launch_fba_bf16_flat<4>(x, b, y, n, C, inner, slope, scale, s, launch);
+  else
+    launch_fba_bf16_flat<1>(x, b, y, n, C, inner, slope, scale, s, launch);
 }
 
 // K2: the same row and last-dim layouts as K1; three streams (g, y, out)
@@ -164,10 +260,21 @@ extern "C" int rick_fused_bias_act(const void* x, const void* bias, void* y, lon
   return (int)cudaGetLastError();
 }
 
-// The bf16 instantiation: x bf16; bias and y f32.
+// K1-bf16: x bf16; bias and y f32.  `launch`, when not null, receives the
+// grid and block of the launch (grid x, grid y, threads).
 extern "C" int rick_fused_bias_act_bf16(const void* x, const void* bias, void* y, long long n,
                                         int C, long long inner, float slope, float scale,
-                                        void* stream) {
+                                        void* stream, int* launch) {
+  launch_fba_bf16(x, static_cast<const float*>(bias), y, n, C, inner, slope, scale,
+                  static_cast<cudaStream_t>(stream), launch);
+  return (int)cudaGetLastError();
+}
+
+// The row-per-block design of K1-bf16 that the flat kernel replaced, kept as
+// its yardstick (see the note at the top).
+extern "C" int rick_fused_bias_act_bf16_rows(const void* x, const void* bias, void* y, long long n,
+                                             int C, long long inner, float slope, float scale,
+                                             void* stream) {
   launch_fba<__nv_bfloat16, rick::bf16x4>(x, static_cast<const float*>(bias), y, n, C, inner,
                                           slope, scale, static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();

@@ -50,14 +50,23 @@ _F = ctypes.c_float
 SIGNATURES = {
     # x, bias, y, n, C, inner, slope, scale, stream
     "rick_fused_bias_act": [_P, _P, _P, _L, _I, _L, _F, _F, _P],
-    # the same, x bf16 (bias and y f32)
-    "rick_fused_bias_act_bf16": [_P, _P, _P, _L, _I, _L, _F, _F, _P],
+    # the same, x bf16 (bias and y f32), and launch: null or int[3] that
+    # receives (grid x, grid y, threads) of the launch
+    "rick_fused_bias_act_bf16": [_P, _P, _P, _L, _I, _L, _F, _F, _P, _P],
+    # x bf16 as rick_fused_bias_act_bf16, by the row-per-block design it
+    # replaced (a yardstick for chip_smoke.py; no wrapper calls it)
+    "rick_fused_bias_act_bf16_rows": [_P, _P, _P, _L, _I, _L, _F, _F, _P],
     # g, y, bias (or null), out, n, C, inner, slope, scale, stream
     "rick_fused_bias_act_bwd": [_P, _P, _P, _P, _L, _I, _L, _F, _F, _P],
     # out, demod, noise, noise_weight, bias, y, B, C, HW, noise_batched, slope, scale, stream
     "rick_modconv_epilogue": [_P, _P, _P, _P, _P, _P, _I, _I, _L, _I, _F, _F, _P],
-    # the same, out, demod, noise and noise_weight bf16 (bias and y f32)
-    "rick_modconv_epilogue_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _L, _I, _F, _F, _P],
+    # the same, out, demod, noise and noise_weight bf16 (bias and y f32), and
+    # launch as for rick_fused_bias_act_bf16
+    "rick_modconv_epilogue_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _L, _I, _F, _F, _P, _P],
+    # as rick_modconv_epilogue_bf16, by the row-per-block design it replaced
+    "rick_modconv_epilogue_bf16_rows": [_P, _P, _P, _P, _P, _P, _I, _I, _L, _I, _F, _F, _P],
+    # grid x, grid y, threads, stream: an empty kernel (the launch floor)
+    "rick_empty_launch": [_I, _I, _I, _P],
     # xs, wt, demod, noise, bias, y, N, Cin, Cout, H, W, noise_batched,
     # k0, k1, k2, k3, use_act, slope, gain, stage (0 load, 1 conv, 2 blur,
     # 3 full), stream

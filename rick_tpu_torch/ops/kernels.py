@@ -19,9 +19,10 @@ K1 and K3 also take bf16, as rick_tpu computes them at the two layers its
 `bf16=True` runs in bf16 (G's first StyledConv, D's from-RGB conv): K1 a bf16
 x with an f32 bias, K3 bf16 out/demod/noise/noise weight with an f32 bias,
 both giving f32 (JAX promotes bf16 + f32 to f32).  A bf16 CUDA tensor
-launches the bf16 instantiation (`<wrapper>.launches_bf16`); any other dtype
-raises.  Their backward rounds the cotangent of each bf16 operand to bf16
-once, from the f32 K2 result, as the transpose of JAX's bf16 -> f32 convert.
+launches the flat bf16 kernel (`fba_bf16_flat`, `epi_bf16_flat`; counted in
+`<wrapper>.launches_bf16`); any other dtype raises.  Their backward rounds
+the cotangent of each bf16 operand to bf16 once, from the f32 K2 result, as
+the transpose of JAX's bf16 -> f32 convert.
 
 `fused_bias_act` and `modconv_epilogue` are differentiable twice, as R1 and
 the path-length regularizer need: `FusedBiasAct`'s backward is the Function
@@ -132,11 +133,10 @@ def _fused_bias_act_fwd(x: torch.Tensor, bias: torch.Tensor, slope: float, scale
     y = torch.empty_like(x, dtype=torch.float32)
     if x.numel() == 0:
         return y
-    entry = _build.lib().rick_fused_bias_act_bf16 if bf16 else _build.lib().rick_fused_bias_act
-    code = entry(
-        x.data_ptr(), bias.data_ptr(), y.data_ptr(), x.numel(), C, inner,
-        float(slope), float(scale), _build.stream_ptr(x.device),
-    )
+    args = (x.data_ptr(), bias.data_ptr(), y.data_ptr(), x.numel(), C, inner, float(slope), float(scale),
+            _build.stream_ptr(x.device))
+    lib = _build.lib()
+    code = lib.rick_fused_bias_act_bf16(*args, None) if bf16 else lib.rick_fused_bias_act(*args)
     _build.check(code, "fused_bias_act")
     if bf16:
         fused_bias_act.launches_bf16 += 1
@@ -249,12 +249,11 @@ def _modconv_epilogue_fwd(out, demod, noise, noise_weight, bias, slope: float, s
     y = torch.empty_like(out, dtype=torch.float32)
     if out.numel() == 0:
         return y
-    entry = _build.lib().rick_modconv_epilogue_bf16 if bf16 else _build.lib().rick_modconv_epilogue
-    code = entry(
-        out.data_ptr(), demod.data_ptr(), noise.data_ptr(), noise_weight.data_ptr(),
-        bias.data_ptr(), y.data_ptr(), B, C, H * W, int(noise.shape[0] == B),
-        float(slope), float(scale), _build.stream_ptr(out.device),
-    )
+    args = (out.data_ptr(), demod.data_ptr(), noise.data_ptr(), noise_weight.data_ptr(), bias.data_ptr(),
+            y.data_ptr(), B, C, H * W, int(noise.shape[0] == B), float(slope), float(scale),
+            _build.stream_ptr(out.device))
+    lib = _build.lib()
+    code = lib.rick_modconv_epilogue_bf16(*args, None) if bf16 else lib.rick_modconv_epilogue(*args)
     _build.check(code, "modconv_epilogue")
     if bf16:
         modconv_epilogue.launches_bf16 += 1

@@ -9,6 +9,12 @@ rate.  K4 (`csrc/convt_blur_act.cu`) runs the transposed conv as 3xTF32, so
 its conv counts three times (hi*hi, hi*lo, lo*hi) at the TF32 rate, and its
 blur and epilogue at the f32 rate.
 
+The launch floor: a kernel takes at least the device time of an empty
+kernel launched with its grid on the same card (`rick_empty_launch`,
+measured in the same run), which at a toy shape (K3-bf16 at 4x4, K1 at
+(B, 512)) is far above what its bytes or operations take.  `bound` counts
+it where the caller gives it.
+
 K1 and K3 are bound by their bytes.  Their bf16 instantiations read bf16
 (2 bytes an element) and write f32 (4), so `fused_bias_act_bytes` and
 `modconv_epilogue_bytes` take the input's element size.
@@ -22,11 +28,15 @@ PEAK_TF32_FLOP_PER_S = 495e12
 TF32_PASSES = 3  # 3xTF32: each f32 product is three TF32 products
 
 
-def bound(nbytes: float, f32_ops: float, tf32_ops: float = 0.0):
-    """(least ms, what bounds it: "bytes" or "operations")."""
+def bound(nbytes: float, f32_ops: float, tf32_ops: float = 0.0, launch_ms: float = 0.0):
+    """(least ms, what bounds it: "bytes", "operations", or "launch" where
+    the launch floor `launch_ms` is the largest term)."""
     t_bytes = nbytes / PEAK_BYTES_PER_S
     t_ops = max(f32_ops / PEAK_F32_FLOP_PER_S, tf32_ops / PEAK_TF32_FLOP_PER_S)
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    ms = max(t_bytes, t_ops) * 1e3
+    if launch_ms > ms:
+        return launch_ms, "launch"
+    return ms, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def convt_ops(batch: int, cin: int, cout: int, h: int, w: int | None = None) -> int:

@@ -205,6 +205,53 @@ def test_modconv_epilogue_bf16_kernel_and_grads_match_plain(cuda, shape, noise_b
         assert _rel(g_.float(), r.float()) <= tol
 
 
+def _bf16_misaligned(shape, seed, device):
+    """A contiguous bf16 tensor 2 bytes past a 16-byte boundary: a slice of a
+    larger buffer."""
+    n = int(np.prod(shape))
+    t = _rand((n + 1,), seed, device=device).bfloat16()[1:].view(shape)
+    assert t.data_ptr() % 16 == 2
+    return t
+
+
+@pytest.mark.parametrize("shape,misaligned", [((2, 3, 6, 6), False), ((3, 5, 7, 9), False), ((2, 8, 16, 16), True),
+                                              ((4, 32), False), ((2, 128, 256, 256), False)],
+                         ids=["inner_mod8_4", "odd_inner", "x_2_bytes_past_16", "2d", "d_from_rgb"])
+def test_fused_bias_act_bf16_flat_kernel_paths_match_plain(cuda, shape, misaligned):
+    """K1-bf16 on each of its load paths (16-byte, 8-byte where inner % 8 ==
+    4, single elements for an odd inner, a misaligned x and the 2-D layout):
+    the same arithmetic as its plain version, 1e-6 of max|ref|, one launch
+    counted in launches_bf16."""
+    c = shape[-1] if len(shape) == 2 else shape[1]
+    x = _bf16_misaligned(shape, 0, cuda) if misaligned else _rand(shape, 0, device=cuda).bfloat16()
+    b = _rand((c,), 1, 0.3, device=cuda)
+    before = ops.fused_bias_act.launches_bf16
+    y = ops.fused_bias_act(x, b)
+    assert ops.fused_bias_act.launches_bf16 == before + 1
+    assert _rel(y, ops.fused_bias_act_ref(x, b)) <= 1e-6
+
+
+@pytest.mark.parametrize("shape,noise_batch,misaligned", [
+    ((2, 512, 4, 4), 2, False), ((2, 512, 4, 4), 1, False), ((2, 6, 6, 6), 2, False), ((2, 3, 5, 7), 2, False),
+    ((2, 3, 5, 7), 1, False), ((2, 512, 4, 4), 2, True), ((4, 128, 64, 64), 4, False)],
+    ids=["conv1_noise_B", "conv1_noise_1", "hw_mod8_4", "odd_hw_noise_B", "odd_hw_noise_1", "out_2_bytes_past_16",
+         "streaming"])
+def test_modconv_epilogue_bf16_flat_kernel_paths_match_plain(cuda, shape, noise_batch, misaligned):
+    """K3-bf16 on each of its load paths (16-byte, 8-byte where hw % 8 == 4,
+    single elements for an odd hw or a misaligned out), noise batch B and 1:
+    the same roundings as its plain version, 1e-6 of max|ref|, one launch
+    counted in launches_bf16."""
+    B, C, H, W = shape
+    out = _bf16_misaligned(shape, 0, cuda) if misaligned else _rand(shape, 0, device=cuda).bfloat16()
+    a = (out, (_rand((B, C), 1, device=cuda).abs() + 0.1).bfloat16(),
+         _rand((noise_batch, 1, H, W), 2, device=cuda).bfloat16(), torch.tensor([0.7], device=cuda).bfloat16(),
+         _rand((C,), 3, 0.3, device=cuda))
+    before = ops.modconv_epilogue.launches_bf16
+    y = ops.modconv_epilogue(*a)
+    assert ops.modconv_epilogue.launches_bf16 == before + 1
+    assert _rel(y, ops.modconv_epilogue_ref(*a)) <= 1e-6
+
+
 def test_kernels_refuse_other_dtypes(cuda):
     """fp16, or a bias that is not f32, raises: neither instantiation takes it."""
     x = torch.randn((2, 4, 3, 3), device=cuda)

@@ -6,6 +6,7 @@ The kernels themselves are compared with their plain versions on the card by
 tests/test_torch_cuda.py."""
 
 import ast
+import ctypes
 import subprocess
 import sys
 from pathlib import Path
@@ -291,6 +292,77 @@ def test_wrappers_take_plain_version_on_cpu_and_count_nothing():
     }
 
 
+def test_bf16_wrappers_take_plain_version_on_cpu_and_count_nothing():
+    """K1-bf16 and K3-bf16 on CPU tensors: the plain versions (f32 out of
+    bf16 in), no launch counted in either form."""
+    ops.reset_launch_counts()
+    x, b = t(rand((2, 4, 3, 3), 0)).bfloat16(), t(rand((4,), 1))
+    y = ops.fused_bias_act(x, b)
+    assert y.dtype == torch.float32 and torch.equal(y, ops.fused_bias_act_ref(x, b))
+    epi = (x, t(np.abs(rand((2, 4), 2))).bfloat16(), t(rand((1, 1, 3, 3), 3)).bfloat16(),
+           torch.tensor([0.5]).bfloat16(), b)
+    y = ops.modconv_epilogue(*epi)
+    assert y.dtype == torch.float32 and torch.equal(y, ops.modconv_epilogue_ref(*epi))
+    assert ops.bf16_launch_counts() == {"fused_bias_act_bf16": 0, "modconv_epilogue_bf16": 0}
+    assert set(ops.launch_counts().values()) == {0}
+
+
+# K1's, K3's and K4's byte and operation counts at main-path shapes, and the
+# bound each gave before the launch floor was counted: (ms, by)
+ROOFLINE_CASES = {
+    "K1 (4,128,256,256)": (4 * (2 * 4 * 128 * 256 * 256 + 128), 3 * 4 * 128 * 256 * 256, 0.0),
+    "K1-bf16 (2,128,256,256)": (None, 3 * 2 * 128 * 256 * 256, 0.0),
+    "K3-bf16 (2,512,4,4)": (None, 6 * 2 * 512 * 16, 0.0),
+    "K4 (4,256,128,128)->128": (4 * (4 * 256 * 128 * 128 + 128 * 256 * 9 + 4 * 128 + 4 * 256 * 256 + 128
+                                     + 4 * 128 * 256 * 256), 20 * 4 * 128 * 256 * 256, None),
+}
+
+
+def _roofline_case(key):
+    from rick_tpu_torch.tools import roofline
+
+    nbytes, f32_ops, tf32_ops = ROOFLINE_CASES[key]
+    if key.startswith("K1-bf16"):
+        nbytes = roofline.fused_bias_act_bytes(2 * 128 * 256 * 256, 128, 2)
+    elif key.startswith("K3-bf16"):
+        nbytes = roofline.modconv_epilogue_bytes(2, 512, 16, 2, 2)
+    if tf32_ops is None:
+        tf32_ops = roofline.TF32_PASSES * roofline.convt_ops(4, 256, 128, 128)
+    return nbytes, f32_ops, tf32_ops
+
+
+@pytest.mark.parametrize("key", list(ROOFLINE_CASES))
+def test_roofline_bound_without_a_launch_floor_is_unchanged(key):
+    """Called without `launch_ms` (or with 0), `bound` gives the largest of
+    bytes over 3.35 TB/s, f32 operations over 67 TFLOP/s and TF32
+    operations over 495 TFLOP/s, as before the floor existed."""
+    from rick_tpu_torch.tools.roofline import bound
+
+    nbytes, f32_ops, tf32_ops = _roofline_case(key)
+    t_bytes, t_ops = nbytes / 3.35e12, max(f32_ops / 67e12, tf32_ops / 495e12)
+    want = (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+    assert bound(nbytes, f32_ops, tf32_ops) == pytest.approx(want) and bound(nbytes, f32_ops, tf32_ops)[1] == want[1]
+    assert bound(nbytes, f32_ops, tf32_ops, launch_ms=0.0) == bound(nbytes, f32_ops, tf32_ops)
+    # a floor below the larger term changes nothing
+    assert bound(nbytes, f32_ops, tf32_ops, launch_ms=0.5 * want[0]) == bound(nbytes, f32_ops, tf32_ops)
+    assert want[1] == ("operations" if key.startswith("K4") else "bytes")
+
+
+@pytest.mark.parametrize("key", list(ROOFLINE_CASES))
+def test_roofline_bound_returns_a_launch_floor_that_dominates(key):
+    """A launch floor above the bytes' and operations' times is the bound,
+    and what bounds the kernel is "launch"."""
+    from rick_tpu_torch.tools.roofline import bound
+
+    nbytes, f32_ops, tf32_ops = _roofline_case(key)
+    floor = 2.0 * bound(nbytes, f32_ops, tf32_ops)[0]
+    assert bound(nbytes, f32_ops, tf32_ops, launch_ms=floor) == (floor, "launch")
+    # K3-bf16 at G's conv1: 0.1 MB, 3e-5 ms by bytes, below any launch
+    if key.startswith("K3-bf16"):
+        assert bound(nbytes, f32_ops, tf32_ops)[0] < 4e-5
+        assert bound(nbytes, f32_ops, tf32_ops, launch_ms=8.6e-4) == (8.6e-4, "launch")
+
+
 def test_wrappers_raise_on_other_devices():
     x = torch.empty((2, 4, 3, 3), device="meta")
     b = torch.empty((4,), device="meta")
@@ -308,7 +380,7 @@ def test_wrappers_raise_on_other_devices():
 
 def test_build_command_names_every_source_and_the_hopper_target():
     names = [p.name for p in _build.sources()]
-    assert names == ["convt_blur_act.cu", "fused_bias_act.cu", "modconv_epilogue.cu"]
+    assert names == ["convt_blur_act.cu", "fused_bias_act.cu", "launch_floor.cu", "modconv_epilogue.cu"]
     flags = " ".join(_build.NVCC_FLAGS)
     assert "-gencode arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
     out = _build.build_path()
@@ -316,16 +388,36 @@ def test_build_command_names_every_source_and_the_hopper_target():
     assert out == _build.build_path()  # the name depends on the sources only
     assert set(_build.SIGNATURES) == {
         "rick_fused_bias_act", "rick_fused_bias_act_bf16", "rick_fused_bias_act_bwd", "rick_modconv_epilogue",
-        "rick_modconv_epilogue_bf16", "rick_convt_blur_act_stage",
+        "rick_modconv_epilogue_bf16", "rick_convt_blur_act_stage", "rick_empty_launch",
+        "rick_fused_bias_act_bf16_rows", "rick_modconv_epilogue_bf16_rows",
     }
 
 
 def test_every_entry_point_is_defined_in_csrc_with_its_signature():
+    # the launch floor and the two redesigned bf16 entry points (each with
+    # its trailing `int* launch`) among them
+    assert {"rick_empty_launch", "rick_fused_bias_act_bf16", "rick_modconv_epilogue_bf16"} <= set(_build.SIGNATURES)
     for name, argtypes in _build.SIGNATURES.items():
         srcs = [p.read_text() for p in _build.sources() if f'extern "C" int {name}(' in p.read_text()]
         assert len(srcs) == 1, name
         decl = srcs[0].split(f'extern "C" int {name}(')[1].split(")")[0]
         assert decl.count(",") + 1 == len(argtypes), name
+        if name in ("rick_fused_bias_act_bf16", "rick_modconv_epilogue_bf16"):
+            assert decl.split(",")[-1].split() == ["int*", "launch"], name
+    assert _build.SIGNATURES["rick_empty_launch"] == [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
+def test_the_bf16_wrappers_launch_the_flat_kernels_only():
+    """The two bf16 entry points launch the flat kernels; the row-per-block
+    kernels they replaced are reachable only through their own `_rows`
+    entry points, which no wrapper names."""
+    src = {p.name: p.read_text() for p in _build.sources()}
+    for file, entry, flat in (("fused_bias_act.cu", "rick_fused_bias_act_bf16", "launch_fba_bf16("),
+                              ("modconv_epilogue.cu", "rick_modconv_epilogue_bf16", "launch_epi_bf16(")):
+        body = src[file].split(f'extern "C" int {entry}(')[1].split("\n}\n")[0]
+        assert flat in body and "launch_fba<" not in body and "launch_epi<" not in body, entry
+    wrappers = (PACKAGE / "ops" / "kernels.py").read_text()
+    assert "_rows" not in wrappers and "rick_fused_bias_act_bf16(" in wrappers and "rick_modconv_epilogue_bf16(" in wrappers
 
 
 def test_import_leaves_jax_triton_and_cuda_alone():
