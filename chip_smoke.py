@@ -124,6 +124,19 @@ Phases, each raising on failure:
     draws of 120 samples at gen_batch 14, chunks of 15 per rank against 12
     in one process, each rank's rows bitwise one process's.
      Two ranks share one card here: a correctness run, not a multi-GPU speed
+ 19. JPEG inputs (no PIL on the card's machine): (a) every committed fixture
+     (`tests/torch_fixtures/jpeg`) through `decode_jpeg`, the sha256 of its
+     pixels equal to PIL's in the manifest; the decode time of a 512x512
+     4:2:0 file and MP/s on the host running the script; (b)
+     `cli.prepare_data` in process (--size 256, LANCZOS) on the ten
+     512x512 "cat" JPEGs, the store's
+     pixels equal to `rick_tpu.prepare_dataset`'s (the manifest's hash);
+     (c) the train CLI with the AFHQ-Cat recipe's --fisher_quantile 85
+     --prune_quantile 0.075 on that store, phase 14's test set for FID@100,
+     iterations 0-10: losses and FIDs finite, K1-K4 launched (`cat_cli`),
+     the Fisher round's G masks at the recipe's percentiles recomputed from
+     its FIMs; (d) `cli.fid`'s folder loader on the ten JPEGs equal to the
+     decoded fixtures through `train_transform`
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -159,8 +172,9 @@ from rick_tpu_torch.cli import fid as fid_cli
 from rick_tpu_torch.cli import intra_lpips as intra_lpips_cli
 from rick_tpu_torch.cli import kid as kid_cli
 from rick_tpu_torch.cli import precision_recall as pr_cli
+from rick_tpu_torch.cli import prepare_data as prepare_data_cli
 from rick_tpu_torch.cli import train as train_cli
-from rick_tpu_torch.data import RecordStoreWriter, decode_png, encode_png
+from rick_tpu_torch.data import RecordStore, RecordStoreWriter, decode_jpeg, decode_png, encode_png, train_transform
 from rick_tpu_torch.dist import initialize_multihost, local_rows
 from rick_tpu_torch.metrics import (
     Evaluator,
@@ -226,6 +240,7 @@ from rick_tpu_torch.train import (
     sample_draws,
     sample_images,
 )
+from rick_tpu_torch.train import fisher as fisher_module
 from rick_tpu_torch.train import steps
 from rick_tpu_torch.train.adam import exp_avg_sq, step_counts
 from rick_tpu_torch.train.masks import d_final, d_trainable, g_trainable
@@ -2380,6 +2395,173 @@ def dp_inputs(path: str) -> None:
                 "fisher": (torch.randn((DP_FISHER_N, tcfg.latent), generator=gen),
                            torch.randn((DP_FISHER_N, 3, SIZE, SIZE), generator=gen))}, path)
 
+# ---------------------------------------------------------------------------
+# phase 19: JPEG inputs and the AFHQ-Cat recipe through the CLI
+# ---------------------------------------------------------------------------
+
+# committed JPEGs (tests/torch_fixtures/make_jpeg_fixtures.py) and the sha256 of
+# what PIL and rick_tpu made of them
+JPEG_FIXTURES = Path(__file__).resolve().parent / "tests" / "torch_fixtures" / "jpeg"
+CAT_PX = 512 * 512 / 1e6  # megapixels of one of the ten "cat" fixtures
+# the AFHQ-Cat recipe (the reference README's second, `README.md:107-114`):
+# phase 14's flags with the recipe's quantiles, iterations 0-10 and FID@100
+# as phase 15 (e)
+CAT_FISHER_Q, CAT_PRUNE_Q = 85, 0.075
+CAT_CLI_FLAGS = [
+    "--size", "256", "--batch", "2", "--n_sample_train", "10", "--num_fisher_img", "5", "--fisher_quantile",
+    str(CAT_FISHER_Q), "--prune_quantile", str(CAT_PRUNE_Q), "--allow_random_fisher_noise", "--eval_in_training",
+    "--store_samples", "--warmup_iter", "4", "--fisher_freq", "8", "--eval_in_training_freq", "10",
+    "--samples_freq", "10", "--n_sample_test", "100", "--iter", "0", "--data_path", "cat", "--exp", "cat",
+]
+
+
+def store_sha256(path: str) -> str:
+    """sha256 over the decoded pixels of every record of a store, in key order
+    (the manifest's `cat_store`)."""
+    store = RecordStore(path)
+    h = hashlib.sha256()
+    for i in range(len(store)):
+        h.update(decode_png(store.get(i)).tobytes())
+    store.close()
+    return h.hexdigest()
+
+
+def jpeg_fixtures(card: str) -> dict:
+    """(a) Every fixture decoded, its pixels' sha256 against PIL's in the
+    manifest; the decode time of the 512x512 files (the median of 5 rounds
+    over the ten, per image) on the host running the script."""
+    manifest = json.loads((JPEG_FIXTURES / "manifest.json").read_text())
+    t0 = time.perf_counter()
+    decode_jpeg((JPEG_FIXTURES / "modes" / "odd_1x1.jpg").read_bytes())  # builds csrc/jpeg_decode.cpp with g++
+    build_s = time.perf_counter() - t0
+    decoded = {}
+    for rel, entry in manifest["files"].items():
+        img = decode_jpeg((JPEG_FIXTURES / rel).read_bytes(), name=rel)
+        digest = hashlib.sha256(img.tobytes()).hexdigest()
+        require(list(img.shape) == entry["shape"] and digest == entry["sha256_pixels"],
+                f"{rel}: decoded {img.shape} {digest[:16]}, PIL's {entry['shape']} {entry['sha256_pixels'][:16]}")
+        decoded[rel] = img
+    cats = [(JPEG_FIXTURES / rel).read_bytes() for rel in sorted(manifest["files"]) if rel.startswith("cat/")]
+    rounds = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for blob in cats:
+            decode_jpeg(blob)
+        rounds.append((time.perf_counter() - t0) / len(cats))
+    per_image = float(np.median(rounds))
+    print(f"  {len(decoded)} fixtures decoded, every sha256 equal to PIL's; g++ build and first call {build_s:.2f} s; "
+          f"512x512 4:2:0 q90: {per_image * 1e3:.3f} ms per image (median of 5 rounds of {len(cats)}; rounds "
+          f"{min(rounds) * 1e3:.3f}-{max(rounds) * 1e3:.3f}), {CAT_PX / per_image:.1f} MP/s on the host [{card}]",
+          flush=True)
+    return dict(manifest=manifest, decoded=decoded, ms_per_image=per_image * 1e3, mp_per_s=CAT_PX / per_image)
+
+
+@contextlib.contextmanager
+def recorded_masks():
+    """The FIMs and masks of every Fisher round inside the block, in order."""
+    out, inner = [], fisher_module.masks_from_fims
+
+    def recording(fim_g, fim_d, **kwargs):
+        out.append((fim_g, fim_d, kwargs, inner(fim_g, fim_d, **kwargs)))
+        return out[-1][-1]
+
+    fisher_module.masks_from_fims = recording
+    yield out
+    fisher_module.masks_from_fims = inner
+
+
+def check_cat_masks(rounds) -> str:
+    """Each round's G masks against the recipe's percentiles recomputed in
+    numpy from the round's FIMs: pruned the filters at or below the
+    CAT_PRUNE_Q-th percentile of their group's scores, frozen those above
+    the CAT_FISHER_Q-th (distinct scores; rick_tpu's groups: G conv filters,
+    G FC input channels); D's shares printed."""
+    lines = []
+    for fim_g, fim_d, kwargs, (g_freeze, g_prune, d_freeze, d_prune) in rounds:
+        require(kwargs == dict(fisher_quantile=CAT_FISHER_Q, prune_quantile=CAT_PRUNE_Q), f"quantiles {kwargs}")
+        n = sum(1 for k in fim_g if k.startswith("convs.") and k.endswith(".conv.weight"))
+        groups = {
+            "G conv": ([fim_g[f"convs.{i}.conv.weight"][0].mean(dim=(1, 2, 3)) for i in range(n)],
+                       [f"convs.{i}.conv.weight" for i in range(n)]),
+            "G FC": ([(fim_g[f"convs.{i}.conv.modulation.weight"].mean(dim=1)
+                       + fim_g[f"convs.{i}.conv.modulation.bias"]) / 2.0 for i in range(n)],
+                     [f"convs.{i}.conv.modulation.bias" for i in range(n)]),
+        }
+        for label, (scores, keys) in groups.items():
+            s = torch.cat(scores).double().cpu().numpy()
+            pruned = sum(int(g_prune[k].sum()) for k in keys)
+            frozen = sum(int(g_freeze[k].sum()) for k in keys)
+            want_p = int((s <= np.quantile(s, CAT_PRUNE_Q / 100)).sum())
+            want_f = int((s > np.quantile(s, CAT_FISHER_Q / 100)).sum())
+            require((pruned, frozen) == (want_p, want_f),
+                    f"{label}: pruned {pruned}, frozen {frozen} of {len(s)}; the percentiles give {want_p}, {want_f}")
+            lines.append(f"{label} pruned {pruned} of {len(s)} ({pruned / len(s):.4%}), frozen {frozen} "
+                         f"({frozen / len(s):.2%})")
+        d_keys = [k for k in d_prune if k.endswith("weight")]  # a bias shares its conv's mask
+        d_n = sum(int(d_prune[k].numel()) for k in d_keys)
+        lines.append(f"D pruned {sum(int(d_prune[k].sum()) for k in d_keys)} and frozen "
+                     f"{sum(int(d_freeze[k].sum()) for k in d_keys)} of {d_n} filters")
+    return "; ".join(lines)
+
+
+def cat_phase(card: str, root: str) -> dict:
+    """Phase 19 on phase 14's store (its 1000 PNGs are the cat run's test
+    set); returns the cat CLI run's launches."""
+    t_phase = time.perf_counter()
+    print("  (a) the committed JPEG fixtures against PIL's pixels", flush=True)
+    fx = jpeg_fixtures(card)
+
+    print("  (b) prepare_data on the ten 512x512 JPEGs: --size 256, LANCZOS, in process", flush=True)
+    cat_root = os.path.join(root, "cat_root")
+    train_store = os.path.join(cat_root, "_processed_train", "cat")
+    t0 = time.perf_counter()
+    prepare_data_cli.main(["--input_path", str(JPEG_FIXTURES / "cat"), "--output_path", train_store, "--size", "256",
+                           "--n_worker", "1"])
+    prep_s = time.perf_counter() - t0
+    digest = store_sha256(train_store)
+    want = fx["manifest"]["cat_store"]
+    require(digest == want["sha256_pixels"], f"the store's pixels {digest[:16]} != rick_tpu's {want['sha256_pixels'][:16]}")
+    print(f"  store of {want['n']} at 256px in {prep_s:.3f} s, its pixels' sha256 equal to rick_tpu.prepare_dataset's "
+          f"[{card}]", flush=True)
+
+    print(f"  (c) train CLI, the AFHQ-Cat recipe's quantiles ({CAT_FISHER_Q}, {CAT_PRUNE_Q}): 256px batch 2, "
+          "iterations 0-10, FID@100 on phase 14's test set", flush=True)
+    os.makedirs(os.path.join(cat_root, "_processed_test"))
+    os.symlink(os.path.join(root, "_processed_test", "babies"), os.path.join(cat_root, "_processed_test", "cat"))
+    flags = ["--data_root", cat_root, "--output_root", os.path.join(cat_root, "out"), "--sample_noise",
+             os.path.join(root, "noise.pt"), "--fisher_noise_dir", os.path.join(root, "_noise")] + CAT_CLI_FLAGS
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with recorded_masks() as rounds:
+        r = train_cli.main(flags)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    recs = [json.loads(line) for line in (Path(cat_root) / "out" / "cat" / "stats.jsonl").read_text().splitlines()]
+    losses = [rec for rec in recs if "d" in rec]
+    fids = [(rec["step"], rec["fid"]) for rec in recs if "fid" in rec]
+    require((r["iterations"], r["evaluations"], r["fisher_rounds"]) == (11, 2, 1) and len(rounds) == 1,
+            f"the cat CLI run stopped early: {r}, {len(rounds)} mask rounds")
+    require(losses and all(math.isfinite(v) for rec in losses for v in rec.values()), f"a loss is not finite: {losses}")
+    require(all(math.isfinite(f) for _, f in fids) and len(fids) == 2, f"FID {fids}")
+    require(all(counts[k] > 0 for k in SOURCES), f"a kernel did not launch in the cat CLI run: {counts}")
+    masks = check_cat_masks(rounds)
+    print(f"  cat CLI run: iterations {r['iterations']}, {r['fisher_rounds']} Fisher round, {r['evaluations']} "
+          f"evaluations of 100 samples, FID {fids}; wall {wall:.3f} s [{card}]; launches {counts}", flush=True)
+    print(f"  masks of the Fisher round at the recipe's percentiles: {masks}", flush=True)
+
+    print("  (d) cli.fid's folder loader on the ten JPEGs", flush=True)
+    imgs = fid_cli._load_images(str(JPEG_FIXTURES / "cat"), SIZE)
+    rng = np.random.default_rng(0)
+    want_imgs = np.stack([train_transform(fx["decoded"][rel], SIZE, rng, flip=False)
+                          for rel in sorted(fx["decoded"]) if rel.startswith("cat/")])
+    require(imgs.shape == (10, 3, SIZE, SIZE) and np.array_equal(imgs, want_imgs),
+            f"cli.fid's folder loader: {imgs.shape}, not the decoded fixtures through train_transform")
+    print(f"  {imgs.shape} equal to the decoded fixtures through train_transform; phase 19: "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(counts=counts, wall_s=wall, ms_per_image=fx["ms_per_image"], mp_per_s=fx["mp_per_s"])
+
 
 def main() -> int:
     card = card_line()
@@ -2540,6 +2722,10 @@ def main() -> int:
         dp_runs.update(dp_ranks(dp_files, card))
         shutil.rmtree(dp_dir)
         print(f"  phase 18: {time.perf_counter() - t_dp:.1f} s ({DP_LABEL})", flush=True)
+
+        print("[19] JPEG inputs: the fixtures against PIL's pixels, prepare_data on ten 512x512 JPEGs, the AFHQ-Cat "
+              "recipe's train CLI on that store, cli.fid's folder loader", flush=True)
+        cat = cat_phase(card, root)
     print(f"  chip_smoke total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = []
@@ -2547,7 +2733,8 @@ def main() -> int:
         k = per_kernel[name]
         by_run = {"generation": gen_counts[name], "training": train_counts[name], "eval": eval_counts[name],
                   "cli": cli_counts[name], "ada": ada_counts[name], "ada_cli": ada_cli_counts[name],
-                  "score": score_counts[name], **{run: counts[name] for run, counts in dp_runs.items()}}
+                  "score": score_counts[name], **{run: counts[name] for run, counts in dp_runs.items()},
+                  "cat_cli": cat["counts"][name]}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces, launches=sum(by_run.values()),
             max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],

@@ -17,14 +17,14 @@ import pathlib
 import numpy as np
 import torch
 
-from rick_tpu_torch.data import ImageDataset, decode_png, get_nsamples, train_transform
+from rick_tpu_torch.data import ImageDataset, decode_image, get_nsamples, train_transform
 from rick_tpu_torch.metrics import calculate_fid_given_images, default_inception_params, inception_from_params
 
 
 def _load_images(path: str, size: int) -> np.ndarray:
     """(N, 3, H, W) f32 in [-1, 1] from a `.npy` (NCHW or NHWC), a record
     store (`records.rdb` or lmdb's `data.mdb`) or a directory of images
-    (PNG; a JPEG raises ValueError, as everywhere in the port)."""
+    (`.png`, `.jpg`, `.jpeg`, through `decode_image`)."""
     if path.endswith(".npy"):
         imgs = np.load(path)
         if imgs.shape[1] != 3:
@@ -40,7 +40,7 @@ def _load_images(path: str, size: int) -> np.ndarray:
     imgs = []
     for f in files:
         with open(f, "rb") as fh:
-            imgs.append(train_transform(decode_png(fh.read()), size, rng, flip=False))
+            imgs.append(train_transform(decode_image(fh.read(), name=f), size, rng, flip=False))
     return np.stack(imgs)
 
 

@@ -1,6 +1,7 @@
-"""Data: the record store of PNG blobs, the port's PNG codec, and the
-image pipeline.  Port of `rick_tpu/data` (store, lmdb page reader, loader);
-the PNG codec takes the place of cv2 and PIL."""
+"""Data: the record store of PNG blobs, the port's PNG codec and JPEG
+decoder, and the image pipeline.  Port of `rick_tpu/data` (store, lmdb page
+reader, loader); `decode_image` (PNG or JPEG, by signature) takes the place
+of cv2 and PIL."""
 
 from rick_tpu_torch.data.loader import (
     ImageDataset,
@@ -9,6 +10,8 @@ from rick_tpu_torch.data.loader import (
     get_nsamples,
     train_transform,
 )
+from rick_tpu_torch.data.image import decode_image
+from rick_tpu_torch.data.jpeg import decode_jpeg
 from rick_tpu_torch.data.png import decode_png, encode_png
 from rick_tpu_torch.data.store import RecordStore, RecordStoreWriter, open_image_store
 
@@ -17,6 +20,8 @@ __all__ = [
     "RecordStore",
     "RecordStoreWriter",
     "data_stream",
+    "decode_image",
+    "decode_jpeg",
     "decode_png",
     "device_data_stream",
     "encode_png",

@@ -1,7 +1,8 @@
 """Host-side image loading: decode -> transform -> device.  Port of
 `rick_tpu/data/loader.py`.
 
-Decoding is the port's own PNG codec (`data/png.py`; no cv2, no PIL).  The
+Decoding is the port's own (`data/image.py::decode_image`: PNG or JPEG, no
+cv2, no PIL).  The
 transform is `rick_tpu`'s torchvision chain: Resize(size) (shorter side,
 bilinear) -> CenterCrop(size) -> RandomHorizontalFlip from the numpy `rng`
 -> [-1, 1], CHW float32.  The resize acts only when the stored size differs
@@ -30,7 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from rick_tpu_torch.data.png import decode_png
+from rick_tpu_torch.data.image import decode_image
 from rick_tpu_torch.dist import Group, local_rows
 from rick_tpu_torch.data.store import open_image_store
 
@@ -80,7 +81,8 @@ class ImageDataset:
 
     def get(self, i: int, rng: np.random.Generator) -> np.ndarray:
         blob = self.store.get(self.indices[i])
-        return train_transform(decode_png(blob), self.resolution, rng, flip=self.flip)
+        return train_transform(decode_image(blob, name=f"record {self.indices[i]}"), self.resolution, rng,
+                               flip=self.flip)
 
 
 def _epoch(rng: np.random.Generator, n: int, batch_size: int, shuffle: bool, drop_last: bool):

@@ -1,8 +1,9 @@
-"""Offline dataset preparation: a folder of PNG images -> a record store of
-PNG blobs.  Port of `rick_tpu/data/prepare.py`, without PIL.
+"""Offline dataset preparation: a folder of PNG and JPEG images -> a record
+store of PNG blobs.  Port of `rick_tpu/data/prepare.py`, without PIL.
 
 The images under `input_path` (recursive, sorted by path, as torchvision's
-ImageFolder orders them) are decoded by the port's PNG codec, the shorter
+ImageFolder orders them) are decoded by `decode_image` (PNG, or JPEG to
+libjpeg-turbo's pixels, as PIL opens them in `rick_tpu`), the shorter
 side is resized to `size`, the center is cropped, and the result is encoded
 and written under key i in that order.  The resize is PIL's
 (`Image.resize` with LANCZOS or BILINEAR, what `rick_tpu` calls), written
@@ -12,8 +13,8 @@ per output pixel, the filter's support scaled by the downscale factor, the
 taps normalised to sum 1 and rounded to 22-bit fixed point, an integer sum
 rounded half up and clipped to uint8 between the passes.
 
-Inputs are PNG only (the port has no JPEG decoder): a file the codec cannot
-decode raises ValueError naming it.
+A file that `decode_image` cannot decode (BMP, WebP and TIFF among them)
+raises ValueError naming it.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ from typing import Callable, List, Tuple
 
 import numpy as np
 
-from rick_tpu_torch.data.png import decode_png, encode_png
+from rick_tpu_torch.data.image import decode_image
+from rick_tpu_torch.data.png import encode_png
 from rick_tpu_torch.data.store import RecordStoreWriter
 
 _EXTS = {".png", ".jpg", ".jpeg", ".bmp", ".webp", ".tiff"}  # rick_tpu's: the same files in the same order
@@ -112,7 +114,7 @@ def list_images(input_path: str) -> List[str]:
 def _resize_and_encode(item: Tuple[int, str], size: int, resample: str) -> Tuple[int, bytes]:
     i, path = item
     with open(path, "rb") as f:
-        img = decode_png(f.read(), name=path)  # PNG only: anything else raises, naming the file
+        img = decode_image(f.read(), name=path)  # PNG or JPEG: anything else raises, naming the file
     h, w = img.shape[:2]
     if min(w, h) != size:
         if w < h:

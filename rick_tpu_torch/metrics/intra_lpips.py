@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from rick_tpu_torch.data.loader import train_transform
-from rick_tpu_torch.data.png import decode_png
+from rick_tpu_torch.data.image import decode_image
 from rick_tpu_torch.metrics.lpips import default_lin_weights, lpips_from_normalized, normalize_taps, vgg_taps
 from rick_tpu_torch.metrics.vgg import default_vgg16_params, vgg16_from_params
 from rick_tpu_torch.utils.images import save_image_grid
@@ -120,13 +120,14 @@ class IntraLPIPS:
 
 def load_cluster_centers(base_path: str, k: int = 10, size: int = 256) -> np.ndarray:
     """`c{0..k-1}/center.png` under `base_path` as (k, 3, size, size) in
-    [-1, 1] (`eval.py:131-138`), through the port's PNG decoder and
-    transform."""
+    [-1, 1] (`eval.py:131-138`), through `decode_image` (PNG or JPEG
+    content, whatever the name) and the transform."""
     rng = np.random.default_rng(0)
     centers = []
     for i in range(k):
-        with open(os.path.join(base_path, f"c{i}", "center.png"), "rb") as fh:
-            centers.append(train_transform(decode_png(fh.read()), size, rng, flip=False))
+        path = os.path.join(base_path, f"c{i}", "center.png")
+        with open(path, "rb") as fh:
+            centers.append(train_transform(decode_image(fh.read(), name=path), size, rng, flip=False))
     return np.stack(centers)
 
 

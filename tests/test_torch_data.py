@@ -1,6 +1,7 @@
 """The port's data path against `rick_tpu`'s: the PNG codec (against
-`rick_tpu`'s cv2/PIL decode, bitwise, and PIL), `ImageDataset` with the
-same numpy rng, the lmdb store, the order of both streams, `get_nsamples`,
+`rick_tpu`'s cv2/PIL decode, bitwise, and PIL; every color type and bit
+depth, plain and interlaced), `ImageDataset` with the same numpy rng on PNG
+and JPEG blobs, the lmdb store, the order of both streams, `get_nsamples`,
 and `save_image_grid` without PIL."""
 
 import io
@@ -27,6 +28,7 @@ from rick_tpu_torch.data import (
     ImageDataset,
     RecordStoreWriter,
     data_stream,
+    decode_image,
     decode_png,
     device_data_stream,
     encode_png,
@@ -90,6 +92,63 @@ def numpy_png(img, ftypes):
 
 
 MODES = {"RGB": 3, "RGBA": 4, "gray": 1}
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+COLOR_TYPES = {"gray": (0, 1), "RGB": (2, 3), "palette": (3, 1), "gray+alpha": (4, 2), "RGBA": (6, 4)}
+
+
+def numpy_png_any(samples, color, depth, interlace, palette=None, ftypes=(0, 1, 2, 3, 4)):
+    """A PNG of (H, W, C) samples (< 2**depth) of any color type and bit
+    depth, Adam7-interlaced or not, rows filtered in turn by `ftypes`; a
+    palette image gets its PLTE and a tRNS chunk: an encoder independent of
+    the port's."""
+    h, w, ch = samples.shape
+    bits = depth * ch
+    raw, n = bytearray(), 0
+    for x0, y0, dx, dy in ADAM7 if interlace else ((0, 0, 1, 1),):
+        sub = samples[y0::dy, x0::dx]
+        if sub.size == 0:
+            continue
+        if depth == 16:
+            rows = sub.astype(">u2").reshape(sub.shape[0], -1).view(np.uint8)
+        elif depth == 8:
+            rows = sub.astype(np.uint8).reshape(sub.shape[0], -1)
+        else:
+            unpacked = (sub.reshape(sub.shape[0], -1, 1) >> np.arange(depth - 1, -1, -1)) & 1
+            rows = np.packbits(unpacked.reshape(sub.shape[0], -1).astype(np.uint8), axis=1)
+        prev = np.zeros(rows.shape[1], np.uint8)
+        for row in rows:
+            ft = ftypes[n % len(ftypes)]
+            raw += bytes([ft]) + _filter_row(ft, row, prev, max(1, bits // 8)).tobytes()
+            prev, n = row, n + 1
+
+    def chunk(t, d):
+        return struct.pack(">I", len(d)) + t + d + struct.pack(">I", zlib.crc32(t + d))
+
+    extra = b""
+    if palette is not None:
+        extra = chunk(b"PLTE", palette.tobytes()) + chunk(b"tRNS", bytes(range(0, 256, 37)))
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, interlace))
+            + extra + chunk(b"IDAT", zlib.compress(bytes(raw))) + chunk(b"IEND", b""))
+
+
+@pytest.mark.parametrize("size", [(13, 11), (3, 2)])
+@pytest.mark.parametrize("interlace", [0, 1], ids=["plain", "adam7"])
+@pytest.mark.parametrize("kind", ["gray1", "gray2", "gray4", "gray16", "palette1", "palette2", "palette4", "palette8",
+                                  "gray+alpha8", "gray+alpha16", "RGB16", "RGBA16", "RGB8"])
+def test_every_png_type_decodes_as_rick_tpu(kind, interlace, size):
+    """Palette, sub-byte gray, 16-bit (the high byte, as cv2 keeps it),
+    gray+alpha, Adam7: bitwise `rick_tpu`'s decode."""
+    name = kind.rstrip("0123456789")
+    depth = int(kind[len(name):])
+    color, ch = COLOR_TYPES[name]
+    rng = np.random.default_rng(depth * 31 + color + 7 * interlace + size[0])
+    samples = rng.integers(0, 2**depth, (*size, ch))
+    palette = rng.integers(0, 256, (2**depth, 3), dtype=np.uint8) if name == "palette" else None
+    blob = numpy_png_any(samples, color, depth, interlace, palette)
+    got = decode_png(blob)
+    assert got.shape == (*size, 3) and got.dtype == np.uint8
+    np.testing.assert_array_equal(got, j_decode(blob))
+    np.testing.assert_array_equal(decode_image(blob), got)
 
 
 @pytest.mark.parametrize("mode", list(MODES))
@@ -131,14 +190,21 @@ def test_encode_reads_back_through_pil(shape):
 
 
 def test_decode_refuses_what_it_does_not_decode():
+    """decode_png names a JPEG (decode_image reads it) and refuses invalid
+    PNGs; a palette PNG, refused before the port read every PNG, decodes as
+    rick_tpu's."""
     buf = io.BytesIO()
     Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(buf, format="JPEG")
     with pytest.raises(ValueError, match="JPEG"):
         decode_png(buf.getvalue())
     buf = io.BytesIO()
-    Image.fromarray(np.zeros((8, 8), np.uint8)).convert("P").save(buf, format="PNG")
-    with pytest.raises(ValueError, match="palette"):
-        decode_png(buf.getvalue())
+    Image.fromarray(smooth_image(np.random.default_rng(4), 8, 8, 3)).convert("P").save(buf, format="PNG")
+    np.testing.assert_array_equal(decode_png(buf.getvalue()), j_decode(buf.getvalue()))
+    palette = np.zeros((4, 3), np.uint8)
+    with pytest.raises(ValueError, match="entry 7 of a 4-entry palette"):
+        decode_png(numpy_png_any(np.full((2, 3, 1), 7), 3, 8, 0, palette))
+    with pytest.raises(ValueError, match="16-bit palette .*not a valid PNG"):
+        decode_png(numpy_png_any(np.zeros((2, 3, 1), np.int64), 3, 16, 0, palette))
     blob = bytearray(encode_png(np.zeros((4, 4, 3), np.uint8)))
     blob[20] ^= 1  # inside IHDR: its CRC fails
     with pytest.raises(ValueError, match="CRC"):
@@ -147,10 +213,10 @@ def test_decode_refuses_what_it_does_not_decode():
         decode_png(numpy_png(np.zeros((2, 4, 3), np.uint8), [0, 7]))
 
 
-def write_stores(path, imgs):
-    """The same PNG blobs through both packages' writers (they write the
-    same bytes)."""
-    blobs = [encode_png(im) for im in imgs]
+def write_stores(path, imgs, blobs=None):
+    """The same PNG blobs (or `blobs`) through both packages' writers (they
+    write the same bytes)."""
+    blobs = blobs or [encode_png(im) for im in imgs]
     with RecordStoreWriter(str(path / "port")) as w:
         for b in blobs:
             w.append(b)
@@ -172,6 +238,30 @@ def test_image_dataset_get_matches_rick_tpu(tmp_path, stored):
     for i in range(6):
         got, want = ds.get(i, r1), jds.get(i, r2)
         assert got.shape == want.shape == (3, 16, 16) and got.dtype == np.float32
+        if stored == (16, 16):
+            np.testing.assert_array_equal(got, want)
+        else:
+            np.testing.assert_allclose(got, want, rtol=0, atol=1 / 127.5 + 1e-6)
+
+
+@pytest.mark.parametrize("stored", [(16, 16), (20, 24)])
+def test_image_dataset_on_jpeg_blobs_matches_rick_tpu(tmp_path, stored):
+    """A store of JPEG blobs (4:4:4, 4:2:0, progressive, gray): bitwise at
+    the stored size, within one level of 255 where the shorter side is
+    resized, as for PNG."""
+    rng = np.random.default_rng(8)
+    blobs = []
+    for k, options in enumerate([{"subsampling": 0}, {"subsampling": 2}, {"progressive": True}, {"quality": 60}]):
+        im = Image.fromarray(smooth_image(rng, *stored, 3))
+        buf = io.BytesIO()
+        (im.convert("L") if k == 3 else im).save(buf, format="JPEG", **options)
+        blobs.append(buf.getvalue())
+    port, jax_path = write_stores(tmp_path, None, blobs)
+    ds, jds = ImageDataset(port, resolution=16), JImageDataset(jax_path, resolution=16)
+    r1, r2 = np.random.default_rng(5), np.random.default_rng(5)
+    for i in range(len(blobs)):
+        got, want = ds.get(i, r1), jds.get(i, r2)
+        assert got.shape == want.shape == (3, 16, 16)
         if stored == (16, 16):
             np.testing.assert_array_equal(got, want)
         else:

@@ -429,6 +429,7 @@ def test_import_leaves_jax_triton_and_cuda_alone():
         "import rick_tpu_torch.cli.fid, rick_tpu_torch.cli.kid, rick_tpu_torch.cli.precision_recall\n"
         "import rick_tpu_torch.cli.intra_lpips, rick_tpu_torch.cli.prepare_data, rick_tpu_torch.cli.convert_lmdb\n"
         "import rick_tpu_torch.dist, rick_tpu_torch.data.prepare, rick_tpu_torch.tools.dryrun_multigpu\n"
+        "import rick_tpu_torch.data.jpeg, rick_tpu_torch.data.image\n"
         "bad = [m for m in ('jax', 'triton', 'PIL', 'cv2') if m in sys.modules]\n"
         "bad += [m for m in sys.modules if m.startswith('rick_tpu.') or m == 'rick_tpu']\n"
         "assert not bad, bad\n"

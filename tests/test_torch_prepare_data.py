@@ -3,8 +3,9 @@
 `prepare_data`: PNG inputs upscaled, downscaled, at size on their shorter
 side, of odd aspect, grey and RGBA, through rick_tpu's PIL pipeline and the
 port's numpy one; the decoded pixels of every record equal, for LANCZOS and
-BILINEAR (the blobs differ: PIL's encoder filters rows adaptively).  A JPEG
-input raises, naming the file.  `pil_resize` alone against PIL on random
+BILINEAR (the blobs differ: PIL's encoder filters rows adaptively).  A
+folder of JPEG and PNG inputs gives the pixels of rick_tpu's store; a JPEG
+the decoder refuses (arithmetic-coded, CMYK) raises, naming the file.  `pil_resize` alone against PIL on random
 shapes.  `convert_lmdb`: tests/lmdb_synth.py's store through both CLIs, the
 same blobs."""
 
@@ -83,9 +84,48 @@ def test_cli_sizes_and_worker_pool_equal_rick_tpus(inputs, tmp_path, capsys):
 
 
 def test_a_jpeg_input_raises_naming_the_file(tmp_path):
-    Image.fromarray(np.zeros((20, 20, 3), np.uint8)).save(tmp_path / "x.jpg")
-    with pytest.raises(ValueError, match="x.jpg.*JPEG"):
-        prepare_dataset(str(tmp_path), str(tmp_path / "out"), size=16, n_worker=1)
+    """JPEG inputs are decoded now; one the decoder refuses still raises,
+    naming the file and what it is."""
+    (tmp_path / "arith").mkdir()
+    Image.fromarray(np.zeros((20, 20, 3), np.uint8)).save(tmp_path / "arith" / "x.jpg")
+    blob = (tmp_path / "arith" / "x.jpg").read_bytes()
+    (tmp_path / "arith" / "x.jpg").write_bytes(blob.replace(b"\xff\xc0", b"\xff\xc9", 1))  # SOF9
+    with pytest.raises(ValueError, match="x.jpg.*JPEG is arithmetic-coded"):
+        prepare_dataset(str(tmp_path / "arith"), str(tmp_path / "out"), size=16, n_worker=1)
+    (tmp_path / "cmyk").mkdir()
+    Image.fromarray(np.zeros((20, 20, 3), np.uint8)).convert("CMYK").save(tmp_path / "cmyk" / "y.jpeg")
+    with pytest.raises(ValueError, match="y.jpeg.*JPEG has 4 components"):
+        prepare_dataset(str(tmp_path / "cmyk"), str(tmp_path / "out2"), size=16, n_worker=1)
+
+
+# JPEG inputs beside PNG ones: (subdir, name, (h, w), PIL mode, save options)
+JPEG_INPUTS = [
+    ("a", "baseline.jpg", (40, 33), "RGB", dict(quality=90, subsampling=2)),
+    ("a", "progressive.jpeg", (23, 77), "RGB", dict(quality=75, progressive=True)),
+    ("a", "png_too.png", (19, 27), "RGB", {}),
+    ("b", "gray.JPG", (35, 21), "L", dict(quality=85)),
+    ("b", "422_restart.jpg", (16, 50), "RGB", dict(subsampling=1, restart_marker_blocks=2)),
+    ("c", "444_small.jpg", (10, 12), "RGB", dict(subsampling=0, quality=100)),
+]
+
+
+@pytest.mark.parametrize("size", [16, 24])
+@pytest.mark.parametrize("resample", ["lanczos", "bilinear"])
+def test_prepare_dataset_of_jpeg_inputs_equals_rick_tpus(tmp_path, resample, size):
+    rng = np.random.default_rng(12)
+    for sub, name, (h, w), mode, options in JPEG_INPUTS:
+        small = rng.integers(0, 256, (max(h // 3, 2), max(w // 3, 2), 3), dtype=np.uint8)
+        img = Image.fromarray(small).resize((w, h), Image.BILINEAR)
+        (tmp_path / "in" / sub).mkdir(parents=True, exist_ok=True)
+        (img.convert(mode) if mode != "RGB" else img).save(tmp_path / "in" / sub / name,
+                                                           format="PNG" if name.endswith(".png") else "JPEG",
+                                                           **options)
+    n = prepare_dataset(str(tmp_path / "in"), str(tmp_path / "port"), size=size, n_worker=1, resample=resample)
+    assert n == j_prepare_dataset(str(tmp_path / "in"), str(tmp_path / "jax"), size=size, n_worker=1,
+                                  resample=resample) == len(JPEG_INPUTS)
+    for i, (a, b) in enumerate(zip(_pixels(tmp_path / "port"), _pixels(tmp_path / "jax"))):
+        assert a.shape == b.shape == (size, size, 3), i
+        np.testing.assert_array_equal(a, b, err_msg=f"record {i}")
 
 
 @pytest.mark.parametrize("case", range(6))
