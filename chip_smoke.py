@@ -137,6 +137,28 @@ Phases, each raising on failure:
      the Fisher round's G masks at the recipe's percentiles recomputed from
      its FIMs; (d) `cli.fid`'s folder loader on the ten JPEGs equal to the
      decoded fixtures through `train_transform`
+ 20. ADA's three warp lowerings, legacy/, BMP/TIFF/WebP inputs: (a) `gather`,
+     `matmul` and `matmul_fir` (`RICK_ADA_WARP`) at 256px, margin 224, batch
+     2 on eight transforms (four p = 1 draws, a rotation with a shift, a
+     flip, two 0.28x zoom-outs): apply_affine and its image gradient on the
+     card against the CPU's result of the same lowering (1e-5 of max|ref|),
+     matmul against gather on the card outside the zoom-outs (1e-6), the
+     matrix lowerings parting from gather in them; (b) per lowering the
+     augment's ms forward at batch 4 and forward and backward at batch 2, its
+     peak memory, and the D and G phases at p = 0.5 alternated over the three
+     (median of 3 rounds of 5); (c) phase 15 (e)'s --augment CLI run under
+     RICK_ADA_WARP=matmul_fir, K1-K4 launched (`ada_fir_cli`); (d)
+     `rick_tpu_torch.legacy` on the card: spectral norm of a 512x512x3x3
+     weight, the conditional norms of 256px activations, against the CPU;
+     the samplers on a CUDA generator; a CheckpointIO round trip of phase 7's
+     state, bitwise; (e) on the card's host (no PIL): every committed BMP,
+     TIFF and WebP fixture (`tests/torch_fixtures/formats`) to the sha256 of
+     PIL's pixels; the decode ms and MP/s of one 512x512 image per variant
+     (BMP 24-bit and RLE8, TIFF none, PackBits, LZW and Deflate with the
+     predictor, written on the host by `format_writers.timing_files` from a
+     cat JPEG's pixels and held to them; WebP lossy and lossless fixtures);
+     `cli.prepare_data` of the mixed folder, the store's pixels equal to
+     `rick_tpu.prepare_dataset`'s
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -148,6 +170,7 @@ import contextlib
 import copy
 import ctypes
 import hashlib
+import importlib.util
 import io
 import json
 import math
@@ -166,7 +189,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from rick_tpu_torch.augment import augment, sample_affine, sample_color
+from rick_tpu_torch.augment import apply_affine, augment, sample_affine, sample_color
 from rick_tpu_torch.ckpt import load_checkpoint, load_state, save_state, train_state_from_jax, train_state_to_jax
 from rick_tpu_torch.cli import fid as fid_cli
 from rick_tpu_torch.cli import intra_lpips as intra_lpips_cli
@@ -174,8 +197,26 @@ from rick_tpu_torch.cli import kid as kid_cli
 from rick_tpu_torch.cli import precision_recall as pr_cli
 from rick_tpu_torch.cli import prepare_data as prepare_data_cli
 from rick_tpu_torch.cli import train as train_cli
-from rick_tpu_torch.data import RecordStore, RecordStoreWriter, decode_jpeg, decode_png, encode_png, train_transform
+from rick_tpu_torch.ckpt.native import flatten as flatten_tree
+from rick_tpu_torch.ckpt.native import unflatten as unflatten_tree
+from rick_tpu_torch.data import (
+    RecordStore,
+    RecordStoreWriter,
+    decode_image,
+    decode_jpeg,
+    decode_png,
+    encode_png,
+    train_transform,
+)
 from rick_tpu_torch.dist import initialize_multihost, local_rows
+from rick_tpu_torch.legacy import (
+    CheckpointIO,
+    cbatch_norm_apply,
+    cinstance_norm_apply,
+    get_ydist,
+    get_zdist,
+    spectral_norm_apply,
+)
 from rick_tpu_torch.metrics import (
     Evaluator,
     IntraLPIPS,
@@ -1402,6 +1443,16 @@ def augment_vs_cpu() -> float:
     return worst
 
 
+def ada_state(tcfg: TrainConfig):
+    """A seeded 256px training state on the card for `tcfg` (augment on)."""
+    wgen = torch.Generator(device=DEV).manual_seed(20)
+    g = Generator(SIZE, rng=wgen, device=DEV)
+    d = Discriminator(SIZE, rng=wgen, device=DEV)
+    randomize_zero_params(g, wgen)
+    randomize_zero_params(d, wgen)
+    return init_train_state(GeneratorConfig(SIZE), DiscriminatorConfig(SIZE), tcfg, rng=wgen, device=DEV, g=g, d=d)
+
+
 def ada_train_slice():
     """(b) A seeded 256px state with augment and the adaptive p, at p 0.5
     with 254 predictions pooled; run_iteration at TRAIN_ITERS.  The first D
@@ -1409,12 +1460,7 @@ def ada_train_slice():
     256 there and nowhere else.  Returns (state, tcfg, launches)."""
     dev = DEV
     tcfg = TrainConfig(batch=2, augment=True, warmup_iter=1, ada_margin=ADA_MARGIN)
-    wgen = torch.Generator(device=dev).manual_seed(20)
-    g = Generator(SIZE, rng=wgen, device=dev)
-    d = Discriminator(SIZE, rng=wgen, device=dev)
-    randomize_zero_params(g, wgen)
-    randomize_zero_params(d, wgen)
-    state = init_train_state(GeneratorConfig(SIZE), DiscriminatorConfig(SIZE), tcfg, rng=wgen, device=dev, g=g, d=d)
+    state = ada_state(tcfg)
     state.ada_p = torch.full((), ADA_START_P, device=dev)
     state.ada_stats = torch.tensor(ADA_START_STATS, device=dev)
     gen = torch.Generator(device=dev).manual_seed(21)
@@ -1502,25 +1548,27 @@ def ada_ab(state, card: str, rounds: int = 3) -> dict:
     return ms
 
 
-def ada_cli_run(card: str, root: str) -> dict:
+def ada_cli_run(card: str, root: str, flags=None, label: str = "--augment") -> dict:
     """(e) The train CLI with --augment (adaptive p) on phase 14's store:
     iterations 0-10, FID@100 at 0 and 10, sample grids.  Returns its
     launches."""
+    flags = ADA_CLI_FLAGS if flags is None else flags
     torch.cuda.synchronize()
     reset_launch_counts()
     t0 = time.perf_counter()
-    r = train_cli.main(cli_flags(root) + ADA_CLI_FLAGS)
+    r = train_cli.main(cli_flags(root) + flags)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
-    recs = [json.loads(line) for line in (Path(root) / "out" / "ada" / "stats.jsonl").read_text().splitlines()]
+    exp = flags[flags.index("--exp") + 1]
+    recs = [json.loads(line) for line in (Path(root) / "out" / exp / "stats.jsonl").read_text().splitlines()]
     fids = [(rec["step"], rec["fid"]) for rec in recs if "fid" in rec]
-    print(f"  CLI --augment run: iterations {r['iterations']}, {r['fisher_rounds']} Fisher rounds, {r['evaluations']} "
+    print(f"  CLI {label} run: iterations {r['iterations']}, {r['fisher_rounds']} Fisher rounds, {r['evaluations']} "
           f"evaluations of 100 samples, FID {fids}, logged p {[rec['ada_p'] for rec in recs if 'ada_p' in rec]}; "
           f"wall {wall:.3f} s [{card}]; launches {counts}", flush=True)
-    require((r["iterations"], r["evaluations"]) == (11, 2), f"the CLI --augment run stopped early: {r}")
+    require((r["iterations"], r["evaluations"]) == (11, 2), f"the CLI {label} run stopped early: {r}")
     require(all(math.isfinite(f) for _, f in fids), f"a FID is not finite: {fids}")
-    require(all(counts[k] > 0 for k in SOURCES), f"a kernel did not launch in the CLI --augment run: {counts}")
+    require(all(counts[k] > 0 for k in SOURCES), f"a kernel did not launch in the CLI {label} run: {counts}")
     return counts
 
 
@@ -2563,6 +2611,284 @@ def cat_phase(card: str, root: str) -> dict:
     return dict(counts=counts, wall_s=wall, ms_per_image=fx["ms_per_image"], mp_per_s=fx["mp_per_s"])
 
 
+# ---------------------------------------------------------------------------
+# phase 20: ADA's three warp lowerings, legacy/, BMP/TIFF/WebP inputs
+# ---------------------------------------------------------------------------
+
+LOWERINGS = ("gather", "matmul", "matmul_fir")
+# each lowering, card vs CPU, images and the image gradient, of max|ref|
+# (TF32 off): the same taps, the products and cuDNN's FIR summed in another
+# order, the scatter-adds' atomics in any order
+WARP_TOL = 1e-5
+# matmul vs gather on the card outside the tail: the same taps and weights,
+# rows then columns against columns then rows
+WARP_PAIR_TOL = 1e-6
+N_TAIL = 2  # the last transforms of `warp_transforms`, beyond the footprint
+FIR_CLI_FLAGS = ADA_CLI_FLAGS[:-1] + ["ada_fir"]  # phase 15 (e)'s run under its own --exp
+LEGACY_TOL = 1e-5  # legacy/ on the card vs the CPU, of max|ref|: sums of 4608 or 131072 terms in another order
+FORMAT_FIXTURES = Path(__file__).resolve().parent / "tests" / "torch_fixtures" / "formats"
+
+
+@contextlib.contextmanager
+def warp_lowering(mode: str):
+    """RICK_ADA_WARP = mode inside the block (the port reads it on every call)."""
+    old = os.environ.get("RICK_ADA_WARP")
+    os.environ["RICK_ADA_WARP"] = mode
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("RICK_ADA_WARP")
+        else:
+            os.environ["RICK_ADA_WARP"] = old
+
+
+def warp_transforms() -> torch.Tensor:
+    """(8, 3, 3) on the CPU, the cases of `tests/test_torch_warp.py` at
+    256px: four p = 1 draws, a rotation by 0.3 with a shift, a flip, and the
+    0.28x zoom-outs (one rotated by 0.7) beyond the footprint."""
+    G = sample_affine(torch.Generator().manual_seed(50), torch.ones(()), 4, SIZE, SIZE)
+    rot = torch.eye(3)
+    c, s = math.cos(0.3), math.sin(0.3)
+    rot[:2, :2] = torch.tensor([[c, -s], [s, c]])
+    rot[0, 2] = 0.1
+    flip = torch.diag(torch.tensor([-1.0, 1.0, 1.0]))
+    tail = torch.diag(torch.tensor([0.28, 0.28, 1.0])).repeat(N_TAIL, 1, 1)
+    c, s = math.cos(0.7), math.sin(0.7)
+    tail[1, :2, :2] = 0.28 * torch.tensor([[c, -s], [s, c]])
+    return torch.cat([G, rot[None], flip[None], tail])
+
+
+def warp_lowerings_vs_cpu() -> float:
+    """(a) Each lowering at 256px, margin 224, batch 2: apply_affine and the
+    gradient of sum(out * w) in the image on the card against the CPU's
+    result of the same lowering; matmul against gather on the card outside
+    the tail; in the tail the matrix lowerings part from gather by O(1), as
+    on the CPU.  Returns the worst card-vs-CPU error of max|ref|."""
+    G = warp_transforms()
+    gen = torch.Generator().manual_seed(51)
+    img, w = torch.randn((len(G), 3, SIZE, SIZE), generator=gen), torch.randn((len(G), 3, SIZE, SIZE), generator=gen)
+    outs, worst = {}, 0.0
+    for mode in LOWERINGS:
+        with warp_lowering(mode):
+            for dev in ("cpu", DEV):
+                parts = []
+                for k in range(0, len(G), 2):
+                    x = img[k : k + 2].to(dev).requires_grad_(True)
+                    out = apply_affine(x, G[k : k + 2].to(dev), margin=ADA_MARGIN)
+                    (grad,) = torch.autograd.grad((out * w[k : k + 2].to(dev)).sum(), x)
+                    parts.append((out.detach().cpu(), grad.cpu()))
+                outs[(mode, dev)] = tuple(torch.cat(t) for t in zip(*parts))
+        for what, got, ref in zip(("images", "gradient"), outs[(mode, DEV)], outs[(mode, "cpu")]):
+            _, rel = rel_err(got, ref)
+            worst = max(worst, rel)
+            print(f"  {mode}, {what}: card vs CPU {rel:.3e} of max|ref|", flush=True)
+            require(bool(torch.isfinite(got).all()) and rel <= WARP_TOL, f"{mode} {what}: card vs CPU {rel:.3e}")
+    for i, what in enumerate(("images", "gradient")):
+        _, rel = rel_err(outs[("matmul", DEV)][i][:-N_TAIL], outs[("gather", DEV)][i][:-N_TAIL])
+        print(f"  matmul vs gather on the card, {what}: {rel:.3e} of max|ref|", flush=True)
+        require(rel <= WARP_PAIR_TOL, f"matmul vs gather on the card, {what}: {rel:.3e}")
+    for mode in ("matmul", "matmul_fir"):
+        _, rel = rel_err(outs[(mode, DEV)][0][-N_TAIL:], outs[("gather", DEV)][0][-N_TAIL:])
+        print(f"  0.28x tail, {mode} vs gather on the card: {rel:.3e} of max|ref|", flush=True)
+        require(rel > 0.1, f"the 0.28x tail: {mode} does not part from gather ({rel:.3e})")
+    return worst
+
+
+def lowering_costs(card: str) -> dict:
+    """(b) Per lowering: the augment (affine and colour) forward at batch B,
+    forward and backward at batch 2 (phase 15 (d)'s calls), CUDA events; the
+    peak device memory of one forward and backward above what was allocated
+    before it."""
+    gen = torch.Generator(device=DEV).manual_seed(22)
+    p = torch.full((), 0.5, device=DEV)
+    x4 = torch.randn((B, 3, SIZE, SIZE), generator=gen, device=DEV)
+    t4 = (sample_affine(gen, p, B, SIZE, SIZE), sample_color(gen, p, B))
+    x2 = torch.randn((2, 3, SIZE, SIZE), generator=gen, device=DEV).requires_grad_(True)
+    t2 = (sample_affine(gen, p, 2, SIZE, SIZE), sample_color(gen, p, 2))
+
+    def fwd():
+        with torch.no_grad():
+            augment(x4, p, margin=ADA_MARGIN, transform=t4)
+
+    def fwd_bwd():
+        torch.autograd.grad(augment(x2, p, margin=ADA_MARGIN, transform=t2)[0].sum(), x2)
+
+    costs = {}
+    for mode in LOWERINGS:
+        with warp_lowering(mode):
+            c = {"fwd_b4_ms": cuda_ms(fwd, iters=10), "fwd_bwd_b2_ms": cuda_ms(fwd_bwd, iters=10)}
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fwd_bwd()
+            torch.cuda.synchronize()
+            c["peak_fwd_bwd_b2_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        costs[mode] = c
+        print(f"  {mode}: augment forward, batch {B}: {c['fwd_b4_ms']:.3f} ms; forward and backward, batch 2: "
+              f"{c['fwd_bwd_b2_ms']:.3f} ms, peak {c['peak_fwd_bwd_b2_gib']:.3f} GiB above the inputs [{card}]",
+              flush=True)
+    return costs
+
+
+def lowering_ab(card: str, rounds: int = 3) -> dict:
+    """(b) The D and G phases at p = 0.5 under each lowering, alternated on
+    one state for `rounds` rounds of 5 calls each, as phase 15 (d): each
+    side is the median of its rounds.  Returns {(phase, lowering): ms}."""
+    tcfg = TrainConfig(batch=2, augment=True, augment_p=0.5, warmup_iter=1, ada_margin=ADA_MARGIN)
+    state = ada_state(tcfg)
+    state.ada_p = torch.full((), 0.5, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(23)
+    real = torch.randn((2, 3, SIZE, SIZE), generator=gen, device=DEV)
+
+    def run(phase):
+        n = 2 * tcfg.batch if phase == "D" else tcfg.batch
+        draws = sample_draws(gen, state.g.cfg, tcfg, tcfg.batch, ada_p=state.ada_p, ada_batch=n)
+        if phase == "D":
+            steps.d_phase(state, tcfg, real, draws, False)
+        else:
+            steps.g_phase(state, tcfg, draws, False, do_ema=True)
+
+    runs = {}
+    for _ in range(rounds):
+        for mode in LOWERINGS:
+            with warp_lowering(mode):
+                for phase in ("D", "G"):
+                    runs.setdefault((phase, mode), []).append(cuda_ms(lambda: run(phase), iters=5))
+    ms = {k: float(np.median(v)) for k, v in runs.items()}
+    for phase in ("D", "G"):
+        print(f"  {phase} phase at p = 0.5, median of {rounds} rounds of 5, alternated: " + "; ".join(
+            f"{mode} {ms[(phase, mode)]:.2f} ms (rounds {[round(x, 2) for x in runs[(phase, mode)]]})"
+            for mode in LOWERINGS) + f" [{card}]", flush=True)
+    return ms
+
+
+def legacy_on_card(state_path: str, card: str) -> float:
+    """(d) legacy/ on the card: spectral norm of a D-sized weight
+    (512x512x3x3, 1 and 5 power iterations), the conditional batch and
+    instance norms of 256px activations, against the CPU; the samplers on a
+    CUDA generator; a CheckpointIO round trip of phase 7's state, bitwise.
+    Returns the worst card-vs-CPU error of max|ref|."""
+    gen = torch.Generator().manual_seed(53)
+    w, u = torch.randn((512, 512, 3, 3), generator=gen), torch.randn((512,), generator=gen)
+    worst = 0.0
+    for n_iter in (1, 5):
+        got, want = spectral_norm_apply(w.to(DEV), u.to(DEV), n_iter=n_iter), spectral_norm_apply(w, u, n_iter=n_iter)
+        for what, a, b in zip(("w / sigma", "u"), got, want):
+            _, rel = rel_err(a.cpu(), b)
+            worst = max(worst, rel)
+            require(rel <= LEGACY_TOL, f"spectral_norm_apply n_iter {n_iter}, {what}: card vs CPU {rel:.3e}")
+    x = torch.randn((2, 64, SIZE, SIZE), generator=gen) * 3.0 + 1.0
+    gamma, beta = torch.randn((2, 64), generator=gen), torch.randn((2, 64), generator=gen)
+    for fn in (cbatch_norm_apply, cinstance_norm_apply):
+        _, rel = rel_err(fn(x.to(DEV), gamma.to(DEV), beta.to(DEV)).cpu(), fn(x, gamma, beta))
+        worst = max(worst, rel)
+        require(rel <= LEGACY_TOL, f"{fn.__name__}: card vs CPU {rel:.3e}")
+    cgen = torch.Generator(device=DEV).manual_seed(54)
+    z, y = get_zdist("gauss", 512)(cgen, 4096), get_ydist(10)(cgen, 4096)
+    require(z.device.type == cgen.device.type and z.shape == (4096, 512) and abs(float(z.mean())) < 0.01 and abs(float(z.std()) - 1) < 0.01,
+            f"get_zdist on the card: {z.shape}, mean {float(z.mean())}, std {float(z.std())}")
+    require(y.device.type == cgen.device.type and int(y.min()) == 0 and int(y.max()) == 9, "get_ydist on the card")
+    tree, _ = load_state(state_path)
+    flat = {k: torch.from_numpy(np.array(v)) for k, v in flatten_tree(tree).items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        cio = CheckpointIO(tmp)
+        cio.register_modules(state=unflatten_tree({k: v.to(DEV) for k, v in flat.items()}))
+        cio.save("phase7.npz", it=MASKED_ITER)
+        back = CheckpointIO(tmp)
+        back.register_modules(state=None)
+        manifest = back.load("phase7.npz")
+        got = {k: torch.from_numpy(np.array(v)) for k, v in flatten_tree(back.module_dict["state"]).items()}
+    require(manifest["step"] == MASKED_ITER and got.keys() == flat.keys()
+            and all(torch.equal(got[k], flat[k]) for k in flat), "the CheckpointIO round trip is not bitwise")
+    print(f"  spectral / conditional norms card vs CPU worst {worst:.3e} of max|ref|; samplers on the card; "
+          f"CheckpointIO round trip of phase 7's state ({len(flat)} tensors) bitwise [{card}]", flush=True)
+    return worst
+
+
+def format_writers():
+    """`tests/torch_fixtures/format_writers.py`, loaded by its path (numpy
+    and the standard library only: the card's host has no PIL)."""
+    spec = importlib.util.spec_from_file_location("format_writers", FORMAT_FIXTURES.parent / "format_writers.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def format_fixtures(card: str, root: str) -> dict:
+    """(e) Every committed BMP, TIFF and WebP fixture decoded on this host,
+    its pixels' sha256 against PIL's in the manifest; the decode time of one
+    512x512 image in each timed variant, the median of 5 rounds of 5, per
+    image: the BMP and TIFF files written here by `timing_files` from the
+    first cat JPEG's pixels (each held to the pixels it was written with,
+    which a CPU test holds to PIL's) and the two 512x512 WebP fixtures;
+    `cli.prepare_data` of the mixed folder against the hash of
+    `rick_tpu.prepare_dataset`'s store.  Returns {variant: ms per image}."""
+    manifest = json.loads((FORMAT_FIXTURES / "manifest.json").read_text())
+    t0 = time.perf_counter()
+    for rel in ("bmp/rle8.bmp", "tiff/rgb_tiles_lzw_predictor.tiff", "webp/lossy_7x9.webp"):
+        decode_image((FORMAT_FIXTURES / rel).read_bytes())  # builds the g++ libraries
+    build_s = time.perf_counter() - t0
+    blobs = {rel: (FORMAT_FIXTURES / rel).read_bytes() for rel in manifest["files"]}
+    for rel, entry in manifest["files"].items():
+        img = decode_image(blobs[rel], name=rel)
+        digest = hashlib.sha256(img.tobytes()).hexdigest()
+        require(list(img.shape) == entry["shape"] and digest == entry["sha256_pixels"],
+                f"{rel}: decoded {img.shape} {digest[:16]}, PIL's {entry['shape']} {entry['sha256_pixels'][:16]}")
+    print(f"  {len(blobs)} fixtures decoded, every sha256 equal to PIL's; g++ builds {build_s:.2f} s", flush=True)
+    rgb = decode_jpeg((JPEG_FIXTURES / "cat" / "00.jpg").read_bytes())
+    timed = {}
+    for variant, (blob, want) in format_writers().timing_files(rgb).items():
+        require(np.array_equal(decode_image(blob, name=variant), want), f"{variant}: not the pixels written")
+        timed[variant] = blob
+    timed["WebP lossy q80"] = blobs["webp/lossy_512.webp"]
+    timed["WebP lossless"] = blobs["webp/lossless_512.webp"]
+    ms = {}
+    for variant, blob in timed.items():
+        rounds = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            for _ in range(5):
+                decode_image(blob)
+            rounds.append((time.perf_counter() - t0) / 5 * 1e3)
+        ms[variant] = float(np.median(rounds))
+        print(f"    512x512 {variant}, {len(blob)} bytes: {ms[variant]:.3f} ms per image (median of 5 rounds of 5; "
+              f"rounds {min(rounds):.3f}-{max(rounds):.3f}), {CAT_PX / ms[variant] * 1e3:.1f} MP/s on the host "
+              f"[{card}]", flush=True)
+    want = manifest["mixed_store"]
+    store = os.path.join(root, "formats_store")
+    prepare_data_cli.main(["--input_path", str(FORMAT_FIXTURES / "mixed"), "--output_path", store, "--size",
+                           str(want["size"]), "--n_worker", "1"])
+    digest = store_sha256(store)
+    require(digest == want["sha256_pixels"], f"the mixed store's pixels {digest[:16]} != rick_tpu's "
+                                             f"{want['sha256_pixels'][:16]}")
+    print(f"  the mixed folder's store of {want['n']} at {want['size']}px equal to rick_tpu.prepare_dataset's "
+          f"[{card}]", flush=True)
+    return ms
+
+
+def formats_phase(card: str, root: str, state_path: str) -> dict:
+    """Phase 20; returns the --augment CLI run's launches under matmul_fir."""
+    t_phase = time.perf_counter()
+    print(f"  (a) the three warp lowerings on the card vs the CPU: {SIZE}px, margin {ADA_MARGIN}, batch 2, "
+          f"tolerance {WARP_TOL} * max|ref|; matmul vs gather {WARP_PAIR_TOL}", flush=True)
+    warp_err = warp_lowerings_vs_cpu()
+    print("  (b) cost of each lowering", flush=True)
+    lowering_costs(card)
+    lowering_ab(card)
+    print("  (c) train CLI with --augment under RICK_ADA_WARP=matmul_fir: 256px batch 2, iterations 0-10, FID@100",
+          flush=True)
+    with warp_lowering("matmul_fir"):
+        counts = ada_cli_run(card, root, FIR_CLI_FLAGS, "--augment (matmul_fir)")
+    print("  (d) legacy/ on the card", flush=True)
+    legacy_err = legacy_on_card(state_path, card)
+    print("  (e) BMP, TIFF and WebP inputs on the card's host", flush=True)
+    format_fixtures(card, root)
+    print(f"  phase 20: {time.perf_counter() - t_phase:.1f} s; lowerings card vs CPU worst {warp_err:.3e}, legacy "
+          f"{legacy_err:.3e}", flush=True)
+    return counts
+
+
 def main() -> int:
     card = card_line()
     print(card, flush=True)
@@ -2720,12 +3046,16 @@ def main() -> int:
         t_dp = time.perf_counter()
         dp_runs = {"dp_cli": dp_cli(root, cli_first, card)}
         dp_runs.update(dp_ranks(dp_files, card))
-        shutil.rmtree(dp_dir)
         print(f"  phase 18: {time.perf_counter() - t_dp:.1f} s ({DP_LABEL})", flush=True)
 
         print("[19] JPEG inputs: the fixtures against PIL's pixels, prepare_data on ten 512x512 JPEGs, the AFHQ-Cat "
               "recipe's train CLI on that store, cli.fid's folder loader", flush=True)
         cat = cat_phase(card, root)
+
+        print("[20] ADA's warp lowerings (gather, matmul, matmul_fir) on the card, the --augment CLI under matmul_fir, "
+              "legacy/, BMP/TIFF/WebP inputs", flush=True)
+        fir_cli_counts = formats_phase(card, root, dp_files["state"])
+        shutil.rmtree(dp_dir)
     print(f"  chip_smoke total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = []
@@ -2734,7 +3064,7 @@ def main() -> int:
         by_run = {"generation": gen_counts[name], "training": train_counts[name], "eval": eval_counts[name],
                   "cli": cli_counts[name], "ada": ada_counts[name], "ada_cli": ada_cli_counts[name],
                   "score": score_counts[name], **{run: counts[name] for run, counts in dp_runs.items()},
-                  "cat_cli": cat["counts"][name]}
+                  "cat_cli": cat["counts"][name], "ada_fir_cli": fir_cli_counts[name]}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces, launches=sum(by_run.values()),
             max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],

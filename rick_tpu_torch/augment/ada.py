@@ -9,14 +9,18 @@ does not grow with M; the FIR pair's does, as (size + 2M)^2.  With G = I the
 pipeline returns the input up to rounding (sym6 is orthogonal), which pins
 every offset of the coordinate bookkeeping.
 
-The warp is `rick_tpu`'s `gather` lowering, the direct `grid_sample`
-transcription: the four bilinear taps are one `torch.gather` over the
-flattened 2x image, and the backward, by autograd, is a scatter-add into it
-followed by the FIR's transposed convolution.  The matrix lowerings of
-`rick_tpu/augment/warp.py` are the TPU's and are not ported.  Where G^-1
+The warp has rick_tpu's three lowerings, chosen by `RICK_ADA_WARP` on
+every call (`_warp_mode`).  The default, `gather`, is the direct
+`grid_sample` transcription: the four bilinear taps are one `torch.gather`
+over the flattened 2x image, and the backward, by autograd, is a
+scatter-add into it followed by the FIR's transposed convolution.
+`matmul` runs the same taps as tiled interpolation matrix products over
+the 2x image, and `matmul_fir` folds the up2-FIR into those matrices and
+never builds the 2x image (`augment/warp.py`).  rick_tpu's default is
+`matmul_fir`, chosen on the TPU; the port keeps `gather`.  Where G^-1
 shrinks the image by more than 2x (|a| + |b| of a row of G^-1 above
-2 sqrt 2), the TPU's default lowering clamps its taps to a footprint and
-parts from this one; the samplers never draw such a G in practice.
+2 sqrt 2), the matrix lowerings clamp their taps to a footprint and part
+from `gather`; the samplers never draw such a G in practice.
 
 Every random number comes from a `torch.Generator` on its device, and `p`
 is a 0-d tensor on that device (the training state's `ada_p`): nothing is
@@ -29,11 +33,13 @@ from __future__ import annotations
 
 import functools
 import math
+import os
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from rick_tpu_torch.augment.warp import _reflect_coord, warp_bilinear_matmul, warp_bilinear_matmul_fir
 from rick_tpu_torch.ops.resample import upfirdn2d_separable
 
 # sym6 wavelet taps (`non_leaking.py:9-22`)
@@ -51,6 +57,13 @@ SYM6 = (
     0.0017677118642428036,
     -0.007800708325034148,
 )
+
+
+def _warp_mode() -> str:
+    """The bilinear warp's lowering, `RICK_ADA_WARP`: 'matmul_fir', 'matmul',
+    or anything else (default) for 'gather'."""
+    return os.environ.get("RICK_ADA_WARP", "gather")
+
 
 StepDraws = Dict[str, torch.Tensor]  # per step's name, its draws; 'select': the Bernoulli uniforms
 
@@ -254,17 +267,6 @@ def sample_color(gen: torch.Generator, p: torch.Tensor, size: int) -> torch.Tens
 # ---------------------------------------------------------------------------
 
 
-def _reflect_coord(pix, size: int):
-    """Fold a continuous pixel coordinate into [-0.5, size-0.5) by mirror
-    reflection about the image edges (grid_sample 'reflection',
-    align_corners=False convention)."""
-    period = 2.0 * size
-    t = torch.remainder(pix + 0.5, period)
-    t = torch.where(t < 0, t + period, t)
-    t = torch.where(t >= size, period - t - 1e-6, t)  # mirror upper half
-    return t - 0.5
-
-
 def _bilinear_sample_reflect(img, x_pix, y_pix):
     """Bilinear sample img (B, C, H, W) at continuous pixel coords (B, Ho, Wo),
     reflecting out-of-range coordinates.  The four taps are one gather over
@@ -342,9 +344,16 @@ def apply_affine(img: torch.Tensor, G: torch.Tensor, *, margin: int = 224) -> to
     M = margin
 
     img_pad = _reflect101_pad(img, M + pad_k)
-    # separable: outer(flip k, flip k) == flip2d(outer(k, k))
-    img_2x = upfirdn2d_separable(img_pad, torch.flip(kernel_1d, (0,)), up=2)
-    H2, W2 = img_2x.shape[2], img_2x.shape[3]  # 2 * (h_o + 2M + 2 pad_k) - (len_k - 1)
+    mode = _warp_mode()
+    if mode == "matmul_fir":
+        # the warp folds the up2-FIR into its tap matrices: the 2x image is
+        # never built, only its dimensions are needed for the coordinates
+        H2 = 2 * img_pad.shape[2] - (len_k - 1)
+        W2 = 2 * img_pad.shape[3] - (len_k - 1)
+    else:
+        # separable: outer(flip k, flip k) == flip2d(outer(k, k))
+        img_2x = upfirdn2d_separable(img_pad, torch.flip(kernel_1d, (0,)), up=2)
+        H2, W2 = img_2x.shape[2], img_2x.shape[3]  # 2 * (h_o + 2M + 2 pad_k) - (len_k - 1)
 
     w_p = w_o + 2 * M + 1
     h_p = h_o + 2 * M + 1
@@ -368,7 +377,12 @@ def apply_affine(img: torch.Tensor, G: torch.Tensor, *, margin: int = 224) -> to
     x_pix = (xp + 1.0) * W2 / 2.0 - 0.5
     y_pix = (yp + 1.0) * H2 / 2.0 - 0.5
 
-    img_affine = _bilinear_sample_reflect(img_2x, x_pix, y_pix)
+    if mode == "matmul_fir":
+        img_affine = warp_bilinear_matmul_fir(img_pad, x_pix, y_pix, np.flip(np.asarray(SYM6, np.float32)))
+    elif mode == "matmul":
+        img_affine = warp_bilinear_matmul(img_2x, x_pix, y_pix)
+    else:
+        img_affine = _bilinear_sample_reflect(img_2x, x_pix, y_pix)
     # down2 'valid' over the restricted window is the crop
     return upfirdn2d_separable(img_affine, kernel_1d, down=2)  # (B, C, h_o, w_o)
 

@@ -1,7 +1,8 @@
 """Dataset preparation CLI of the port: `python -m
 rick_tpu_torch.cli.prepare_data`, with the flags of `rick_tpu.cli.prepare_data`
 (the reference's `prepare_data.py:64-86`).  A host tool: it never touches the
-card.  The inputs are PNG or JPEG (`data/prepare.py`)."""
+card.  The inputs are PNG, JPEG, BMP, TIFF (`.tiff`) or WebP, decoded to
+PIL's pixels (`data/prepare.py`)."""
 
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ from rick_tpu_torch.data.prepare import prepare_dataset
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="prepare PNG and JPEG images into a record store")
+    p = argparse.ArgumentParser(description="prepare PNG, JPEG, BMP, TIFF and WebP images into a record store")
     p.add_argument("--input_path", type=str, required=True)
     p.add_argument("--output_path", type=str, required=True)
     p.add_argument("--size", type=str, default="256")

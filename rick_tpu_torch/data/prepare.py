@@ -1,9 +1,10 @@
-"""Offline dataset preparation: a folder of PNG and JPEG images -> a record
-store of PNG blobs.  Port of `rick_tpu/data/prepare.py`, without PIL.
+"""Offline dataset preparation: a folder of PNG, JPEG, BMP, TIFF and WebP
+images -> a record store of PNG blobs.  Port of `rick_tpu/data/prepare.py`,
+without PIL.
 
 The images under `input_path` (recursive, sorted by path, as torchvision's
-ImageFolder orders them) are decoded by `decode_image` (PNG, or JPEG to
-libjpeg-turbo's pixels, as PIL opens them in `rick_tpu`), the shorter
+ImageFolder orders them) are decoded by `decode_image` to the pixels PIL
+gives `rick_tpu` (JPEG as libjpeg-turbo, WebP as libwebp), the shorter
 side is resized to `size`, the center is cropped, and the result is encoded
 and written under key i in that order.  The resize is PIL's
 (`Image.resize` with LANCZOS or BILINEAR, what `rick_tpu` calls), written
@@ -13,8 +14,8 @@ per output pixel, the filter's support scaled by the downscale factor, the
 taps normalised to sum 1 and rounded to 22-bit fixed point, an integer sum
 rounded half up and clipped to uint8 between the passes.
 
-A file that `decode_image` cannot decode (BMP, WebP and TIFF among them)
-raises ValueError naming it.
+A file that `decode_image` cannot decode as PIL does raises ValueError
+naming it.
 """
 
 from __future__ import annotations
@@ -114,7 +115,7 @@ def list_images(input_path: str) -> List[str]:
 def _resize_and_encode(item: Tuple[int, str], size: int, resample: str) -> Tuple[int, bytes]:
     i, path = item
     with open(path, "rb") as f:
-        img = decode_image(f.read(), name=path)  # PNG or JPEG: anything else raises, naming the file
+        img = decode_image(f.read(), name=path)  # what it cannot decode raises, naming the file
     h, w = img.shape[:2]
     if min(w, h) != size:
         if w < h:

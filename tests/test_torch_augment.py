@@ -196,7 +196,7 @@ def test_apply_affine_matches_rick_tpu(size, margin, lowering, monkeypatch):
     """Six transforms (four p = 1 draws, a rotation with a shift, a flip)
     against rick_tpu's default lowering and its gather lowering; and the
     gradient of sum(out * w) with respect to the image against jax.grad."""
-    monkeypatch.setenv("RICK_ADA_WARP", lowering)  # read by rick_tpu only
+    monkeypatch.setenv("RICK_ADA_WARP", lowering)  # read by both packages
     G = _warp_cases(size)
     img, w = rand((len(G), 3, size, size), 3), rand((len(G), 3, size, size), 4)
     want = j_apply_affine(margin)(j(img), j(G))
