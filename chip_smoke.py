@@ -159,6 +159,24 @@ Phases, each raising on failure:
      cat JPEG's pixels and held to them; WebP lossy and lossless fixtures);
      `cli.prepare_data` of the mixed folder, the store's pixels equal to
      `rick_tpu.prepare_dataset`'s
+ 21. the threaded batch decoder (`data/native.py`, host C++ `csrc/rickdata.cpp`
+     over the port's own inflate, PNG and JPEG readers): (a) g++'s seconds
+     for it; (b) on phase 14's stores (10 + 1000 PNGs at 256px), flips off,
+     one `decode_batch` of each against `ImageDataset.get` one at a time:
+     the levels bitwise, the floats rick_tpu's native normalization of them
+     (px * float32(1 / 127.5) - 1, at most a float32 ulp from
+     `train_transform`'s px / 127.5 - 1); at 128px bitwise the plain numpy
+     transcription of rick_tpu's float resize (`native.process_one`) and
+     within one level of the port's F.interpolate path; (c) images/s of one
+     `decode_batch` over 1000 images at 1, 8 and os.cpu_count() threads
+     (median of 3) against the one-at-a-time path, on the 1000 PNGs and on
+     the ten cat JPEGs repeated to 1000 (512px to 256px), with the host's
+     CPU count; (d) the train CLI with --n_sample_train 1000 on phase 14's
+     store, iterations 0-10, FID@100: 786 MB decoded is over the 512 MiB
+     staging limit, so the host stream runs and every batch is one
+     `decode_batch` of 2; K1-K4 launched (`native_cli`), the wait in
+     `next(train_loader)` and run_iteration's seconds beside phase 14's
+     staged run
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -200,6 +218,8 @@ from rick_tpu_torch.cli import train as train_cli
 from rick_tpu_torch.ckpt.native import flatten as flatten_tree
 from rick_tpu_torch.ckpt.native import unflatten as unflatten_tree
 from rick_tpu_torch.data import (
+    ImageDataset,
+    NativeImageDataset,
     RecordStore,
     RecordStoreWriter,
     decode_image,
@@ -208,6 +228,7 @@ from rick_tpu_torch.data import (
     encode_png,
     train_transform,
 )
+from rick_tpu_torch.data import native as native_module
 from rick_tpu_torch.dist import initialize_multihost, local_rows
 from rick_tpu_torch.legacy import (
     CheckpointIO,
@@ -1347,8 +1368,10 @@ def cli_phase(card: str, root: str) -> tuple:
             runs[label].update(wall_s=time.perf_counter() - t0, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                                sections=timer.take())
             if label == "first":
+                n_iter, iter_s = runs[label]["sections"]["run_iteration"]
                 first = {"metrics": [{k: float(v) for k, v in m.items()} for m in metrics],
-                         "ckpt": os.path.join(root, f"first_{CLI_CKPT_STEP:06d}.state.npz")}
+                         "ckpt": os.path.join(root, f"first_{CLI_CKPT_STEP:06d}.state.npz"),
+                         "iteration_s": iter_s / n_iter}
                 shutil.copy(os.path.join(root, "out", "cli", "checkpoints", f"{CLI_CKPT_STEP:06d}.state.npz"),
                             first["ckpt"])
     counts = launch_counts()
@@ -2889,6 +2912,204 @@ def formats_phase(card: str, root: str, state_path: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the threaded batch decoder and the train CLI's host stream
+# ---------------------------------------------------------------------------
+
+NATIVE_SMALL = 128  # below the store's 256: the decoder's own resize runs
+NATIVE_ROUNDS = 3
+NATIVE_ULP = 2.0**-23  # a float32 ulp at 1: px * float32(1 / 127.5) - 1 against px / 127.5 - 1
+NATIVE_JPEG_N = 1000  # the ten cat JPEGs (512x512), repeated
+# phase 15 (e)'s run without --augment, with the 1000 test images as the
+# training set: 1000 x 3 x 256^2 x 4 bytes = 786 MB, over the CLI's 512 MiB,
+# so the run streams from the host thread through decode_batch
+NATIVE_CLI_N = 1000
+NATIVE_CLI_FLAGS = [
+    "--size", "256", "--batch", "2", "--n_sample_train", str(NATIVE_CLI_N), "--num_fisher_img", "5",
+    "--fisher_quantile", "40", "--prune_quantile", "0.1", "--allow_random_fisher_noise", "--eval_in_training",
+    "--store_samples", "--warmup_iter", "4", "--fisher_freq", "8", "--eval_in_training_freq", "10",
+    "--samples_freq", "10", "--n_sample_test", "100", "--iter", "0", "--exp", "native",
+]
+
+
+def levels(x: np.ndarray) -> np.ndarray:
+    """[-1, 1] floats of either normalization -> the uint8 levels."""
+    return np.rint((x.astype(np.float64) + 1.0) * 127.5).astype(np.uint8)
+
+
+def native_parity(root: str, card: str) -> dict:
+    """(b) Phase 14's two stores (10 + 1000 PNGs at 256px), flips off: one
+    `decode_batch` of each against `ImageDataset.get` one at a time (the
+    levels bitwise; the floats equal to rick_tpu's normalization of them,
+    within an ulp of `train_transform`'s), and at NATIVE_SMALL against the
+    plain numpy transcription of rick_tpu's float resize (bitwise) and the
+    port's F.interpolate path (within one level).  Returns the seconds of
+    the one-at-a-time path on the 1000."""
+    worst_ulp, worst_small, n, one_s = 0.0, 0.0, 0, 0.0
+    for split in ("_processed_train", "_processed_test"):
+        path = os.path.join(root, split, "babies")
+        ds = ImageDataset(path, SIZE, flip=False)
+        t0 = time.perf_counter()
+        py = np.stack([ds.get(i, None) for i in range(len(ds))])
+        one_s = time.perf_counter() - t0
+        got = NativeImageDataset(path, SIZE, flip=False).decode_batch(np.arange(len(ds)), None)
+        lv = levels(py)
+        require(np.array_equal(levels(got), lv), f"{split}: decode_batch's levels are not ImageDataset.get's")
+        require(np.array_equal(got, lv.astype(np.float32) * native_module._NORM - np.float32(1)),
+                f"{split}: decode_batch is not px * float32(1 / 127.5) - 1 of ImageDataset.get's levels")
+        worst_ulp = max(worst_ulp, float(np.abs(got - py).max()))
+        small = NativeImageDataset(path, NATIVE_SMALL, flip=False).decode_batch(np.arange(len(ds)), None)
+        imgs = lv.transpose(0, 2, 3, 1)  # the decoded images: the store is at 256, no crop, no flip
+        plain = np.stack([native_module.process_one(im, NATIVE_SMALL, False) for im in imgs])
+        require(np.array_equal(small, plain), f"{split}: decode_batch at {NATIVE_SMALL} is not the numpy "
+                                              "transcription of rick_tpu's float resize")
+        interp = np.stack([train_transform(im, NATIVE_SMALL, None, flip=False) for im in imgs])
+        worst_small = max(worst_small, float(np.abs(small - interp).max()))
+        n += len(ds)
+    require(worst_ulp <= NATIVE_ULP, f"decode_batch against ImageDataset.get: {worst_ulp:.3e} > {NATIVE_ULP:.3e}")
+    require(worst_small <= 1 / 127.5 + 1e-6, f"at {NATIVE_SMALL}, against F.interpolate: {worst_small:.3e} > 1 level")
+    print(f"  (b) {n} PNGs at {SIZE}px: decode_batch's levels bitwise ImageDataset.get's, its floats rick_tpu's "
+          f"normalization of them, {worst_ulp:.3e} from train_transform's (<= one float32 ulp); at "
+          f"{NATIVE_SMALL}px bitwise the numpy transcription of rick_tpu's float resize, {worst_small:.3e} "
+          f"({worst_small * 127.5:.2f} levels) from the port's F.interpolate path [{card}]", flush=True)
+    return dict(one_at_a_time_s=one_s)
+
+
+def native_rates(root: str, card: str, png_one_s: float) -> dict:
+    """(c) Images/s of `decode_batch` (one call over the whole set, the
+    median of NATIVE_ROUNDS) at 1, 8 and os.cpu_count() threads against the
+    one-at-a-time path (`ImageDataset.get`, one pass): the 1000 PNGs at
+    256px (no resize), and the ten 512x512 cat JPEGs repeated to 1000,
+    decoded to 256px (each path's resize runs)."""
+    cats = sorted((JPEG_FIXTURES / "cat").glob("*.jpg"))
+    jpeg_store = os.path.join(root, "native_cat")
+    with RecordStoreWriter(jpeg_store) as w:
+        for k in range(NATIVE_JPEG_N):
+            w.append(cats[k % len(cats)].read_bytes())
+    ds = ImageDataset(jpeg_store, SIZE, flip=False)
+    t0 = time.perf_counter()
+    for i in range(len(ds)):
+        ds.get(i, None)
+    jpeg_one_s = time.perf_counter() - t0
+    threads = sorted({1, 8, os.cpu_count() or 1})
+    rates = {}
+    for label, path, one_s in (("PNG 256px", os.path.join(root, "_processed_test", "babies"), png_one_s),
+                               ("JPEG 512px -> 256px", jpeg_store, jpeg_one_s)):
+        n = len(NativeImageDataset(path, SIZE))
+        line = [f"one at a time {n / one_s:.1f}"]
+        for t in threads:
+            nds = NativeImageDataset(path, SIZE, flip=False, n_threads=t)
+            rounds = []
+            for _ in range(NATIVE_ROUNDS):
+                t0 = time.perf_counter()
+                nds.decode_batch(np.arange(n), None)
+                rounds.append(time.perf_counter() - t0)
+            rates[label, t] = n / float(np.median(rounds))
+            line.append(f"{t} thread{'s' * (t > 1)} {rates[label, t]:.1f} (rounds {n / max(rounds):.1f}-"
+                        f"{n / min(rounds):.1f})")
+        rates[label, "one"] = n / one_s
+        print(f"  (c) {label}, {n} images, images/s: " + "; ".join(line) + f"; host CPUs {os.cpu_count()} "
+              f"[host of {card}]", flush=True)
+    return rates
+
+
+@contextlib.contextmanager
+def recorded_streams():
+    """Which stream the train CLI opens inside the block, the seconds each
+    `next` on it waits (host clock), and every `decode_batch` call (batch
+    size, host seconds)."""
+    rec = {"streams": [], "next_s": [], "decode_batch": []}
+    orig = {name: getattr(train_cli, name) for name in ("data_stream", "device_data_stream")}
+    inner_decode = NativeImageDataset.decode_batch
+
+    class Timed:
+        def __init__(self, inner):
+            self.inner = inner
+
+        def __iter__(self):
+            return self
+
+        def __next__(self):
+            t0 = time.perf_counter()
+            out = next(self.inner)
+            rec["next_s"].append(time.perf_counter() - t0)
+            return out
+
+        def close(self):
+            self.inner.close()
+
+    def opening(name):
+        def open_stream(*args, **kwargs):
+            rec["streams"].append(name)
+            return Timed(orig[name](*args, **kwargs))
+        return open_stream
+
+    def decode_batch(self, idx, rng):
+        t0 = time.perf_counter()
+        out = inner_decode(self, idx, rng)
+        rec["decode_batch"].append((len(out), time.perf_counter() - t0))
+        return out
+
+    for name in orig:
+        setattr(train_cli, name, opening(name))
+    NativeImageDataset.decode_batch = decode_batch
+    yield rec
+    for name, fn in orig.items():
+        setattr(train_cli, name, fn)
+    NativeImageDataset.decode_batch = inner_decode
+
+
+def native_cli_run(root: str, card: str, staged_iteration_s: float) -> dict:
+    """(d) The train CLI with --n_sample_train NATIVE_CLI_N on phase 14's
+    store (iterations 0-10, FID@100): the training set is a
+    NativeImageDataset too large to stage, so every batch comes from the
+    host thread's decode_batch; K1-K4 launched, losses and FIDs finite.
+    Returns its launches."""
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with SectionTimer() as timer, recorded_streams() as rec:
+        r = train_cli.main(cli_flags(root) + NATIVE_CLI_FLAGS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    recs = [json.loads(line) for line in (Path(root) / "out" / "native" / "stats.jsonl").read_text().splitlines()]
+    losses = [rec_ for rec_ in recs if "d" in rec_]
+    fids = [(rec_["step"], rec_["fid"]) for rec_ in recs if "fid" in rec_]
+    require((r["iterations"], r["evaluations"]) == (11, 2), f"the host-stream CLI run stopped early: {r}")
+    require(rec["streams"] == ["data_stream"], f"the CLI opened {rec['streams']}, not the host stream")
+    batches = [n for n, _ in rec["decode_batch"] if n == 2]  # the rest are get's (get_nsamples' real grid)
+    require(len(batches) >= r["iterations"] and {n for n, _ in rec["decode_batch"]} <= {1, 2},
+            f"decode_batch calls {[n for n, _ in rec['decode_batch']][:20]}: not one batch of 2 per iteration")
+    require(losses and all(math.isfinite(v) for rec_ in losses for v in rec_.values()), "a loss is not finite")
+    require(len(fids) == 2 and all(math.isfinite(f) for _, f in fids), f"FID {fids}")
+    require(all(counts[k] > 0 for k in SOURCES), f"a kernel did not launch in the host-stream CLI run: {counts}")
+    n_iter, iter_s = timer.take()["run_iteration"]
+    decode_ms = 1e3 * float(np.mean([s for n, s in rec["decode_batch"] if n == 2]))
+    print(f"  (d) CLI --n_sample_train {NATIVE_CLI_N} ({NATIVE_CLI_N * 3 * SIZE * SIZE * 4 / 1e6:.0f} MB decoded, "
+          f"over the 512 MiB staging limit): the host stream, {len(batches)} decode_batch calls of 2 images, "
+          f"{decode_ms:.3f} ms each on the producer thread; next(train_loader) {1e3 * np.mean(rec['next_s']):.3f} ms "
+          f"mean, {1e3 * max(rec['next_s']):.3f} ms worst over {len(rec['next_s'])}; run_iteration "
+          f"{iter_s / n_iter:.4f} s mean over {n_iter} against {staged_iteration_s:.4f} s in phase 14's staged first "
+          f"run; FID {fids}; wall {wall:.3f} s [{card}]; launches {counts}", flush=True)
+    return counts
+
+
+def native_phase(card: str, root: str, staged_iteration_s: float) -> dict:
+    """Phase 21 on phase 14's store; returns the host-stream CLI run's
+    launches."""
+    t_phase = time.perf_counter()
+    require(native_module.native_available(), f"rickdata.cpp does not build: {native_module.build_error()}")
+    gxx = _build.host_build_seconds.get("rickdata.cpp")  # phase 14's first CLI run built it
+    print(f"  (a) rickdata.cpp: g++ {gxx:.2f} s at its build in this process" if gxx is not None else
+          "  (a) rickdata.cpp: a build found on disk", flush=True)
+    parity = native_parity(root, card)
+    native_rates(root, card, parity["one_at_a_time_s"])
+    counts = native_cli_run(root, card, staged_iteration_s)
+    print(f"  phase 21: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts
+
+
 def main() -> int:
     card = card_line()
     print(card, flush=True)
@@ -3056,6 +3277,11 @@ def main() -> int:
               "legacy/, BMP/TIFF/WebP inputs", flush=True)
         fir_cli_counts = formats_phase(card, root, dp_files["state"])
         shutil.rmtree(dp_dir)
+
+        print("[21] the threaded batch decoder (data/native.py): its build, pixels against the one-at-a-time path "
+              "and rick_tpu's float resize, images/s by threads, the train CLI's host stream through it",
+              flush=True)
+        native_cli_counts = native_phase(card, root, cli_first["iteration_s"])
     print(f"  chip_smoke total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = []
@@ -3064,7 +3290,8 @@ def main() -> int:
         by_run = {"generation": gen_counts[name], "training": train_counts[name], "eval": eval_counts[name],
                   "cli": cli_counts[name], "ada": ada_counts[name], "ada_cli": ada_cli_counts[name],
                   "score": score_counts[name], **{run: counts[name] for run, counts in dp_runs.items()},
-                  "cat_cli": cat["counts"][name], "ada_fir_cli": fir_cli_counts[name]}
+                  "cat_cli": cat["counts"][name], "ada_fir_cli": fir_cli_counts[name],
+                  "native_cli": native_cli_counts[name]}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces, launches=sum(by_run.values()),
             max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],

@@ -47,7 +47,7 @@ from rick_tpu_torch.ckpt import (
     train_state_to_jax,
 )
 from rick_tpu_torch.ckpt.async_io import AsyncSaver, Snapshot, atomic_write
-from rick_tpu_torch.data import ImageDataset, data_stream, device_data_stream, get_nsamples
+from rick_tpu_torch.data import ImageDataset, NativeImageDataset, data_stream, device_data_stream, get_nsamples
 from rick_tpu_torch.dist import (
     all_gather_rows,
     initialize_multihost,
@@ -205,6 +205,22 @@ def load_fisher_noises(noise_dir, num_fisher_img, latent, batch, *, allow_random
     return np.concatenate(noises, axis=0), rows
 
 
+# a training set up to this size (decoded, f32) is staged on the device;
+# larger ones stream from the host thread, as rick_tpu's
+STAGED_BYTES_MAX = 512 << 20
+
+
+def open_dataset(path: str, size: int, **kw):
+    """The training set at `path`, as `rick_tpu`'s `open_dataset`: a record
+    store (`records.rdb`) through the threaded batch decoder
+    (`NativeImageDataset`), an lmdb store through `ImageDataset`, which is
+    where `rick_tpu`'s native open fails.  Decided by the store's format,
+    not by catching an error: a failed build or decode stops the run."""
+    if os.path.exists(os.path.join(path, "records.rdb")):
+        return NativeImageDataset(path, resolution=size, **kw)
+    return ImageDataset(path, resolution=size, **kw)
+
+
 def _dataset_fingerprint(path: str) -> str:
     """Content fingerprint of a dataset directory, for real-set cache keys:
     the store file's (size, mtime_ns), or for a plain image directory
@@ -347,20 +363,20 @@ def run_training(args, group, device) -> dict:
     train_path = os.path.join(args.data_root, "_processed_train", args.data_path)
     test_path = os.path.join(args.data_root, "_processed_test", args.data_path)
     if args.n_sample_train == 10:
-        train_ds = ImageDataset(train_path, resolution=args.size)
+        train_ds = open_dataset(train_path, args.size)
     else:
         base = ImageDataset(test_path, resolution=args.size)
         few_shot_idx = np.random.choice(len(base), size=args.n_sample_train, replace=False)  # equal on every rank
         if is_main:
             np.savetxt(os.path.join(args.output_path, f"{args.n_sample_train}-shot-index.txt"), few_shot_idx)
-        train_ds = ImageDataset(test_path, resolution=args.size, indices=few_shot_idx)
+        train_ds = open_dataset(test_path, args.size, indices=few_shot_idx)
         say(f"Few-shot transfer with {few_shot_idx.size}-shot images")
     # A few-shot set is staged whole on the device: each batch is then a
     # gather and a flip there, and the host, which already bounds the
     # training phases, neither decodes nor copies per iteration.  Larger sets
     # stream from the host thread, each rank its rows with a seed of its own.
     staged_bytes = len(train_ds) * 3 * args.size * args.size * 4
-    if staged_bytes <= (512 << 20):
+    if staged_bytes <= STAGED_BYTES_MAX:
         train_loader = device_data_stream(train_ds, args.batch, seed=args.seed, device=device, group=group)
     else:
         train_loader = data_stream(train_ds, local_batch_size(args.batch, group), seed=args.seed + 7919 * rank(group),

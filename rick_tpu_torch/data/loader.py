@@ -13,7 +13,10 @@ of 255 apart (1/127.5 after normalization).
 
 `data_stream` runs a host thread that decodes ahead and copies each batch to
 the device from pinned memory; `device_data_stream` stages a few-shot set
-whole on the device and draws each batch there as a gather and a flip.
+whole on the device and draws each batch there as a gather and a flip.  Both
+take the dataset's `decode_batch` where it has one (`NativeImageDataset`,
+`data/native.py`: one C call per batch on a pool of threads, outside the
+GIL), and `get` one image at a time otherwise, as `rick_tpu`'s streams do.
 
 Data-parallel runs (`dist/`): the staged stream draws the global batch on
 every rank, from the same seeds, and yields the rank's rows of it, so N
@@ -127,10 +130,15 @@ def data_stream(
     def producer():
         rng = np.random.default_rng(seed)
         n = len(dataset)
+        decode_batch = getattr(dataset, "decode_batch", None)
         while not stop.is_set():
             order, end = _epoch(rng, n, batch_size, shuffle, drop_last)
             for s in range(0, end, batch_size):
-                batch = np.stack([dataset.get(int(i), rng) for i in order[s : s + batch_size]])
+                idx = order[s : s + batch_size]
+                if decode_batch is not None:  # the threaded batch decoder (data/native.py)
+                    batch = decode_batch(idx, rng)
+                else:
+                    batch = np.stack([dataset.get(int(i), rng) for i in idx])
                 batch = _to_device(batch, device)
                 with cv:
                     cv.wait_for(lambda: len(ready) < prefetch or stop.is_set())
@@ -191,7 +199,11 @@ def device_data_stream(
     # decode everything once, flips off (the flip happens per draw)
     old_flip = dataset.flip
     dataset.flip = False
-    imgs = np.stack([dataset.get(i, rng) for i in range(n)])
+    decode_batch = getattr(dataset, "decode_batch", None)
+    if decode_batch is not None:
+        imgs = decode_batch(np.arange(n), rng)
+    else:
+        imgs = np.stack([dataset.get(i, rng) for i in range(n)])
     dataset.flip = old_flip
     imgs_dev = torch.from_numpy(imgs).to(device)
     flips = torch.Generator(device=device).manual_seed(seed + 13)

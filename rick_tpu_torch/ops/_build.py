@@ -16,7 +16,8 @@ on a non-zero code.  `ptxas_report()` reads each kernel's registers and
 spills from the build's log (`-Xptxas -v`).
 
 `host_library()` builds a host C++ source of `csrc/` (`*.cpp`, no CUDA) with
-g++ into a directory of its own beside the kernels'.
+g++ into a directory of its own beside the kernels', named by a hash of the
+source and of every header it includes (`host_build_path`).
 """
 
 from __future__ import annotations
@@ -218,33 +219,77 @@ def sass_counts(opcode: str) -> dict:
 GXX_FLAGS = ["-std=c++17", "-O3", "-shared", "-fPIC"]
 
 
-def host_library(src: Path) -> ctypes.CDLL:
-    """Build a host C++ source (no CUDA) with g++ into a directory of its own
-    under `BUILD_DIR`, named by a hash of the source and flags, unless that
-    build exists, and load it.  Apart from the nvcc build, so that it also
-    runs where there is no CUDA toolkit; a failed build raises."""
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+# g++'s seconds per host source compiled by this process (a build found on
+# disk adds nothing)
+host_build_seconds: dict = {}
+
+
+def included(src: Path) -> List[Path]:
+    """The files that `src` includes with quotes, transitively, each found
+    beside the file that includes it; `src` not among them."""
+    found: List[Path] = []
+    todo = [src]
+    while todo:
+        cur = todo.pop()
+        for m in _INCLUDE.findall(cur.read_bytes()):
+            p = (cur.parent / m.decode()).resolve()
+            if p not in found:
+                found.append(p)
+                todo.append(p)
+    return sorted(found)
+
+
+def host_build_path(src: Path) -> Path:
+    """The directory of `src`'s host build, named by a hash of the flags, the
+    source and every header it includes, so that a header's edit builds
+    anew."""
     h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
     h.update(src.read_bytes())
-    out = BUILD_DIR / f"host_{src.stem}_{h.hexdigest()[:16]}"
-    so = out / f"lib{src.stem}.so"
+    for p in included(src):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"host_{src.stem}_{h.hexdigest()[:16]}"
+
+
+def host_build(src: Path) -> Optional[str]:
+    """Build a host C++ source (no CUDA) with g++ into a directory of its own
+    under `BUILD_DIR` (`host_build_path`), unless that build exists.
+    Returns None, or why the build failed (g++'s output)."""
+    out = host_build_path(src)
     with _build_lock():
-        if not out.exists():
-            _compile_host(src, out, so)
-    return ctypes.CDLL(str(so))
+        if out.exists():
+            return None
+        t0 = time.perf_counter()
+        err = _compile_host(src, out, out / f"lib{src.stem}.so")
+        if err is None:
+            host_build_seconds[src.name] = time.perf_counter() - t0
+        return err
 
 
-def _compile_host(src: Path, out: Path, so: Path) -> None:
+def host_library(src: Path) -> ctypes.CDLL:
+    """`src` built by `host_build` and loaded.  Apart from the nvcc build, so
+    that it also runs where there is no CUDA toolkit; a failed build
+    raises."""
+    err = host_build(src)
+    if err is not None:
+        raise RuntimeError(err)
+    return ctypes.CDLL(str(host_build_path(src) / f"lib{src.stem}.so"))
+
+
+def _compile_host(src: Path, out: Path, so: Path) -> Optional[str]:
     gxx = shutil.which("g++")
     if gxx is None:
-        raise RuntimeError(f"no g++ found: it is needed to build {src.name}")
+        return f"no g++ found: it is needed to build {src.name}"
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     tmp.mkdir(parents=True)
     proc = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp / so.name), str(src)], capture_output=True,
                           text=True, timeout=300)
     if proc.returncode != 0:
         shutil.rmtree(tmp)
-        raise RuntimeError(f"g++ failed on {src.name} ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        return f"g++ failed on {src.name} ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
     os.replace(tmp, out)
+    return None
 
 
 def check(code: int, name: str) -> None:
