@@ -20,7 +20,8 @@ Layering (bottom to top):
   metrics -- the in-loop FID evaluator, InceptionV3, the Frechet distance
   data   -- the record store, a PNG codec of its own (no cv2, no PIL), the
             image pipeline
-  utils  -- image grids, `stats.jsonl`, a profiler window
+  utils  -- image grids, `stats.jsonl`, a profiler window, the program's own
+            spans and counters (`utils/trace.py`)
   cli    -- `python -m rick_tpu_torch.cli.train`, rick_tpu's train CLI
 
 Dispatch is by device and nothing else: a CPU tensor takes each kernel's plain

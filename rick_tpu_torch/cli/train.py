@@ -549,6 +549,7 @@ def run_training(args, group, device) -> dict:
                 last_best_save = time.time()
                 saver.submit_latest("best", functools.partial(write_best, fid=fid), snap)
 
+    profiler.close(args.iter + 10 + 1)
     train_loader.close()
     if is_main:
         if best_dirty is not None:

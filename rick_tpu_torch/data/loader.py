@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from rick_tpu_torch.data.image import decode_image
 from rick_tpu_torch.dist import Group, local_rows
 from rick_tpu_torch.data.store import open_image_store
+from rick_tpu_torch.utils.trace import count, span
 
 
 def _resize_shorter(img: np.ndarray, size: int) -> np.ndarray:
@@ -217,15 +218,18 @@ def device_data_stream(
             return self
 
         def __next__(self):
-            if self._pos + batch_size > len(self._order):
-                order, end = _epoch(rng, n, batch_size, shuffle, drop_last)
-                self._order = order[:end]
-                self._pos = 0
-            idx = torch.from_numpy(self._order[self._pos : self._pos + batch_size].astype(np.int64)).to(device)
-            self._pos += batch_size
-            b = imgs_dev[idx]
-            do = torch.rand((idx.shape[0],), generator=flips, device=device) < 0.5
-            return local_rows(torch.where(do[:, None, None, None], b.flip(-1), b), group)
+            with span("data.next_batch"):
+                if self._pos + batch_size > len(self._order):
+                    order, end = _epoch(rng, n, batch_size, shuffle, drop_last)
+                    self._order = order[:end]
+                    self._pos = 0
+                idx = torch.from_numpy(self._order[self._pos : self._pos + batch_size].astype(np.int64))
+                with count("data.index_upload"):
+                    idx = idx.to(device)
+                self._pos += batch_size
+                b = imgs_dev[idx]
+                do = torch.rand((idx.shape[0],), generator=flips, device=device) < 0.5
+                return local_rows(torch.where(do[:, None, None, None], b.flip(-1), b), group)
 
         def close(self):
             pass

@@ -59,6 +59,7 @@ from rick_tpu_torch.metrics.inception import default_inception_params, inception
 from rick_tpu_torch.metrics.intra_lpips import IntraLPIPS, load_cluster_centers
 from rick_tpu_torch.metrics.precision_recall import IPR, manifold_device, precision_and_recall_device
 from rick_tpu_torch.metrics.vgg import vgg16_fc2_features
+from rick_tpu_torch.utils.trace import span
 
 KID_SUBSETS = 100
 
@@ -190,8 +191,10 @@ class Evaluator:
         out = []
         with torch.inference_mode():
             for zc, nc in self._chunks(z, noise):
-                imgs, _ = g_ema([zc], rng=rng, noise=nc, dtype=self.gen_dtype, fast=self._fast)
-                out.append(self.inception.pool3(imgs, **self._pool3_kw).float())
+                with span("eval.generate"):
+                    imgs, _ = g_ema([zc], rng=rng, noise=nc, dtype=self.gen_dtype, fast=self._fast)
+                with span("eval.inception"):
+                    out.append(self.inception.pool3(imgs, **self._pool3_kw).float())
         return torch.cat(out)
 
     def vgg_features(self, g_ema, z: torch.Tensor, *, rng: Optional[torch.Generator] = None,
@@ -291,30 +294,31 @@ class Evaluator:
                                 pr: bool = False) -> Dict[str, float]:
         if pr and self.ipr is None:
             raise ValueError("pr=True needs an Evaluator built with compute_pr=True")
-        score: Dict[str, float] = {}
-        self._calls += 1
-        acts = self._fake_acts(g_ema)
-        mu, cov = self._fake_stats(acts)
-        self.last_stats = (mu, cov)
-        if kid:
-            real, fake = self._real_acts_dev[:2000], all_gather_rows(acts, self.group)[:2000]
-            m = min(1000, real.shape[0], fake.shape[0])
+        with span("eval.score"):
+            score: Dict[str, float] = {}
+            self._calls += 1
+            acts = self._fake_acts(g_ema)
+            mu, cov = self._fake_stats(acts)
+            self.last_stats = (mu, cov)
+            if kid:
+                real, fake = self._real_acts_dev[:2000], all_gather_rows(acts, self.group)[:2000]
+                m = min(1000, real.shape[0], fake.shape[0])
 
-            def draw(n):
-                return torch.stack([torch.randperm(n, generator=self._gen, device=self.device)[:m]
-                                    for _ in range(KID_SUBSETS)])
+                def draw(n):
+                    return torch.stack([torch.randperm(n, generator=self._gen, device=self.device)[:m]
+                                        for _ in range(KID_SUBSETS)])
 
-            score["kid"] = float(kid_subsets(real, fake, draw(real.shape[0]), draw(fake.shape[0])).mean())
-        if fid:
-            score["fid"] = self.fid(mu, cov)
-        if pr:
-            if self.ipr.manifold_ref is None:  # the real set's, the same at every call
-                self.ipr.compute_manifold_ref(self.real)
-            feats = all_gather_rows(torch.cat([self.vgg_features(g_ema, z, noise=n)
-                                               for z, n in self._chunk_draws(g_ema, 1)]), self.group)
-            score["precision"], score["recall"] = precision_and_recall_device(
-                self.ipr.manifold_ref, manifold_device(feats, self.ipr.k))
-        return score
+                score["kid"] = float(kid_subsets(real, fake, draw(real.shape[0]), draw(fake.shape[0])).mean())
+            if fid:
+                score["fid"] = self.fid(mu, cov)
+            if pr:
+                if self.ipr.manifold_ref is None:  # the real set's, the same at every call
+                    self.ipr.compute_manifold_ref(self.real)
+                feats = all_gather_rows(torch.cat([self.vgg_features(g_ema, z, noise=n)
+                                                   for z, n in self._chunk_draws(g_ema, 1)]), self.group)
+                score["precision"], score["recall"] = precision_and_recall_device(
+                    self.ipr.manifold_ref, manifold_device(feats, self.ipr.k))
+            return score
 
     def compute_intra_lpips(self, g_ema, cluster_center_path: str, *, n_samples: int = 1000,
                             cluster_size: int = 50, k: int = 10, size: int = 256, seed: int = 0) -> float:

@@ -3,7 +3,8 @@
 Every kernel wrapper (`fused_bias_act`, `fused_bias_act_bwd`,
 `modconv_epilogue`, `convt_blur_act`) takes its plain PyTorch version for CPU
 tensors and launches its CUDA kernel for CUDA tensors; `KERNELS` lists them,
-each with a `launches` count.  `fused_bias_act` and `modconv_epilogue` are
+each with a `launches` count, and inside `utils.trace.recording()` each call
+is counted, with its host time, under `ops.<wrapper>`.  `fused_bias_act` and `modconv_epilogue` are
 differentiable twice; `convt_blur_act` is forward only, as in JAX.
 `fused_bias_act` and `modconv_epilogue` have a bf16 instantiation too
 (`BF16_KERNELS`), counted apart in `launches_bf16`.

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from rick_tpu_torch.ops import _build
 from rick_tpu_torch.ops.kernels import _require, check_cuda, forbid_autograd
 from rick_tpu_torch.ops.resample import blur
+from rick_tpu_torch.utils.trace import count
 
 # K5's stages, in the kernel's order (the `stage` argument of the entry point)
 STAGES = ("load", "conv", "blur", "full")
@@ -174,11 +175,12 @@ def convt_blur_act(
     ALREADY scaled by the layer's noise weight; act_bias: (Cout,) or None
     (zeros).  Returns (N, Cout, 2H, 2W)."""
     kw = dict(blur_kernel=blur_kernel, slope=slope, gain=gain, use_act=use_act)
-    if xs.device.type == "cpu":
-        return convt_blur_act_ref(xs, weight, demod, noise, act_bias, **kw)
-    y = _launch("convt_blur_act", "full", xs, weight, demod, noise, act_bias, **kw)
-    convt_blur_act.launches += 1
-    return y
+    with count("ops.convt_blur_act"):
+        if xs.device.type == "cpu":
+            return convt_blur_act_ref(xs, weight, demod, noise, act_bias, **kw)
+        y = _launch("convt_blur_act", "full", xs, weight, demod, noise, act_bias, **kw)
+        convt_blur_act.launches += 1
+        return y
 
 
 convt_blur_act.launches = 0

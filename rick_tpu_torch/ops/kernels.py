@@ -13,7 +13,8 @@ Port of the Pallas kernels of `rick_tpu/ops/pallas_kernels.py`:
 Each kernel wrapper takes its plain version for a tensor on the CPU, launches
 its kernel (`csrc/fused_bias_act.cu`, `csrc/modconv_epilogue.cu`) for a CUDA
 tensor, and raises on anything else.  `<wrapper>.launches` counts kernel
-launches.
+launches; inside `utils.trace.recording()` each wrapper call, whatever the
+device, is counted under `ops.<wrapper>` with its host time.
 
 K1 and K3 also take bf16, as rick_tpu computes them at the two layers its
 `bf16=True` runs in bf16 (G's first StyledConv, D's from-RGB conv): K1 a bf16
@@ -40,6 +41,7 @@ import math
 import torch
 
 from rick_tpu_torch.ops import _build
+from rick_tpu_torch.utils.trace import count
 
 SQRT2 = math.sqrt(2.0)
 
@@ -151,23 +153,24 @@ def fused_bias_act_bwd(g: torch.Tensor, y: torch.Tensor, bias=None, slope: float
 
     Not recorded by autograd itself: `FusedBiasActBackward` is its
     differentiable form."""
-    if g.device.type == "cpu":
-        return fused_bias_act_bwd_ref(g, y, bias, slope, scale)
-    C, inner = _fba_shape_args("fused_bias_act_bwd", g, bias)
-    _require(y.shape == g.shape, f"fused_bias_act_bwd: y {tuple(y.shape)} != g {tuple(g.shape)}")
-    tensors = dict(g=g, y=y) if bias is None else dict(g=g, y=y, bias=bias)
-    check_cuda("fused_bias_act_bwd", g.device, torch.float32, **tensors)
-    forbid_autograd("fused_bias_act_bwd", **tensors)
-    out = torch.empty_like(g)
-    if g.numel() == 0:
+    with count("ops.fused_bias_act_bwd"):
+        if g.device.type == "cpu":
+            return fused_bias_act_bwd_ref(g, y, bias, slope, scale)
+        C, inner = _fba_shape_args("fused_bias_act_bwd", g, bias)
+        _require(y.shape == g.shape, f"fused_bias_act_bwd: y {tuple(y.shape)} != g {tuple(g.shape)}")
+        tensors = dict(g=g, y=y) if bias is None else dict(g=g, y=y, bias=bias)
+        check_cuda("fused_bias_act_bwd", g.device, torch.float32, **tensors)
+        forbid_autograd("fused_bias_act_bwd", **tensors)
+        out = torch.empty_like(g)
+        if g.numel() == 0:
+            return out
+        code = _build.lib().rick_fused_bias_act_bwd(
+            g.data_ptr(), y.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
+            g.numel(), C, inner, float(slope), float(scale), _build.stream_ptr(g.device),
+        )
+        _build.check(code, "fused_bias_act_bwd")
+        fused_bias_act_bwd.launches += 1
         return out
-    code = _build.lib().rick_fused_bias_act_bwd(
-        g.data_ptr(), y.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
-        g.numel(), C, inner, float(slope), float(scale), _build.stream_ptr(g.device),
-    )
-    _build.check(code, "fused_bias_act_bwd")
-    fused_bias_act_bwd.launches += 1
-    return out
 
 
 fused_bias_act_bwd.launches = 0
@@ -219,7 +222,8 @@ class FusedBiasAct(torch.autograd.Function):
 def fused_bias_act(x: torch.Tensor, bias: torch.Tensor, slope: float = 0.2, scale: float = SQRT2):
     """y = leaky_relu(x + bias, slope) * scale; bias (C,) on the last dim of a
     2-D x and on dim 1 of an N-D x (N >= 3).  Differentiable twice."""
-    return FusedBiasAct.apply(x, bias, slope, scale)
+    with count("ops.fused_bias_act"):
+        return FusedBiasAct.apply(x, bias, slope, scale)
 
 
 fused_bias_act.launches = 0
@@ -307,7 +311,8 @@ def modconv_epilogue(
     out (B,C,H,W), demod (B,C), noise (B,1,H,W) or (1,1,H,W), noise_weight a
     one-element tensor (read on the device: no host sync), bias (C,).
     Differentiable twice."""
-    return ModconvEpilogue.apply(out, demod, noise, noise_weight, bias, slope, scale)
+    with count("ops.modconv_epilogue"):
+        return ModconvEpilogue.apply(out, demod, noise, noise_weight, bias, slope, scale)
 
 
 modconv_epilogue.launches = 0

@@ -26,6 +26,7 @@ import torch
 from rick_tpu_torch.dist import Group, process_batch_slice, replicate, sum_, world_size
 from rick_tpu_torch.train.losses import d_logistic_loss, g_nonsaturating_loss
 from rick_tpu_torch.train.masks import Masks
+from rick_tpu_torch.utils.trace import span
 
 Fims = Dict[str, torch.Tensor]
 
@@ -157,7 +158,8 @@ def fisher_round(
     """FIM accumulation and the mask decisions: (g_freeze, g_prune,
     d_freeze, d_prune).  The caller replaces its freeze masks and merges the
     prune masks (`masks.merge_prune`).  `group`: see `accumulate_fims`."""
-    fim_g, fim_d = accumulate_fims(
-        g_ema, d_ema, noises, reals, batch=batch, denom=denom, const_noise=const_noise, gen=gen, group=group,
-    )
-    return masks_from_fims(fim_g, fim_d, fisher_quantile=fisher_quantile, prune_quantile=prune_quantile)
+    with span("fisher.round"):
+        fim_g, fim_d = accumulate_fims(
+            g_ema, d_ema, noises, reals, batch=batch, denom=denom, const_noise=const_noise, gen=gen, group=group,
+        )
+        return masks_from_fims(fim_g, fim_d, fisher_quantile=fisher_quantile, prune_quantile=prune_quantile)

@@ -66,6 +66,7 @@ from rick_tpu_torch.train.adam import Params, adam_step
 from rick_tpu_torch.train.losses import d_logistic_loss, g_nonsaturating_loss, path_stats
 from rick_tpu_torch.train.masks import d_final, d_trainable, g_trainable, mask_grads, prune_params
 from rick_tpu_torch.train.state import TrainConfig, TrainState, trainable_params
+from rick_tpu_torch.utils.trace import span
 
 
 @dataclass
@@ -229,25 +230,26 @@ def d_phase(state: TrainState, tcfg: TrainConfig, real_img: torch.Tensor, draws:
     ADA call at the state's p, then (adaptive p) the p update.  Returns
     (metrics, the reals the R1 phase takes: the augmented ones).  With a
     process `group`, real_img and draws are this rank's rows."""
-    cdt = compute_dtype(tcfg)
-    with torch.no_grad():
-        fake = _fake(state.g, _latent(state.g, draws), draws, cdt).float()
-        real_aug, fake_aug = real_img, fake
-        if tcfg.augment:
-            both = _augment(tcfg, torch.cat([real_img, fake]), state.ada_p, draws)
-            real_aug, fake_aug = both[: real_img.shape[0]], both[real_img.shape[0]:]
-    fake_pred, _ = state.d(fake_aug, dtype=cdt, group=group)
-    real_pred, _ = state.d(real_aug, dtype=cdt, group=group)
-    real_pred, fake_pred = real_pred.float(), fake_pred.float()
-    loss = d_logistic_loss(real_pred, fake_pred)
-    _d_step(state, loss, warmup, group)
-    if tcfg.augment and tcfg.augment_p == 0:
-        state.ada_p, state.ada_stats, state.r_t = ada_update(
-            state.ada_p, state.ada_stats, state.r_t, real_pred.detach(), tcfg, group)
-    d, real_score, fake_score = reduce_mean(
-        torch.stack([loss.detach(), real_pred.detach().mean(), fake_pred.detach().mean()]), group)
-    metrics = {"d": d, "real_score": real_score, "fake_score": fake_score, "ada_p": state.ada_p, "r_t": state.r_t}
-    return metrics, real_aug
+    with span("train.d"):
+        cdt = compute_dtype(tcfg)
+        with torch.no_grad():
+            fake = _fake(state.g, _latent(state.g, draws), draws, cdt).float()
+            real_aug, fake_aug = real_img, fake
+            if tcfg.augment:
+                both = _augment(tcfg, torch.cat([real_img, fake]), state.ada_p, draws)
+                real_aug, fake_aug = both[: real_img.shape[0]], both[real_img.shape[0]:]
+        fake_pred, _ = state.d(fake_aug, dtype=cdt, group=group)
+        real_pred, _ = state.d(real_aug, dtype=cdt, group=group)
+        real_pred, fake_pred = real_pred.float(), fake_pred.float()
+        loss = d_logistic_loss(real_pred, fake_pred)
+        _d_step(state, loss, warmup, group)
+        if tcfg.augment and tcfg.augment_p == 0:
+            state.ada_p, state.ada_stats, state.r_t = ada_update(
+                state.ada_p, state.ada_stats, state.r_t, real_pred.detach(), tcfg, group)
+        d, real_score, fake_score = reduce_mean(
+            torch.stack([loss.detach(), real_pred.detach().mean(), fake_pred.detach().mean()]), group)
+        metrics = {"d": d, "real_score": real_score, "fake_score": fake_score, "ada_p": state.ada_p, "r_t": state.r_t}
+        return metrics, real_aug
 
 
 def r1_phase(state: TrainState, tcfg: TrainConfig, real_img: torch.Tensor, warmup: bool,
@@ -256,12 +258,13 @@ def r1_phase(state: TrainState, tcfg: TrainConfig, real_img: torch.Tensor, warmu
     r1 / 2 * r1 * d_reg_every.  Returns the r1 value.  With a process
     `group`, each rank's input gradient is that of the global sum (the
     stddev gather sums the cotangents over the ranks)."""
-    real = real_img.detach().requires_grad_(True)
-    pred, _ = state.d(real, group=group)
-    (grad_real,) = torch.autograd.grad(pred.sum(), real, create_graph=True)
-    r1 = grad_real.pow(2).reshape(grad_real.shape[0], -1).sum(dim=1).mean()
-    _d_step(state, tcfg.r1 / 2.0 * r1 * tcfg.d_reg_every, warmup, group)
-    return reduce_mean(r1.detach(), group)
+    with span("train.r1"):
+        real = real_img.detach().requires_grad_(True)
+        pred, _ = state.d(real, group=group)
+        (grad_real,) = torch.autograd.grad(pred.sum(), real, create_graph=True)
+        r1 = grad_real.pow(2).reshape(grad_real.shape[0], -1).sum(dim=1).mean()
+        _d_step(state, tcfg.r1 / 2.0 * r1 * tcfg.d_reg_every, warmup, group)
+        return reduce_mean(r1.detach(), group)
 
 
 def g_phase(state: TrainState, tcfg: TrainConfig, draws: Draws, warmup: bool, do_ema: bool,
@@ -269,18 +272,19 @@ def g_phase(state: TrainState, tcfg: TrainConfig, draws: Draws, warmup: bool, do
     """G step on the non-saturating loss, with augment through the ADA warp
     at the state's p; with `do_ema`, the iteration's EMA of G and D.
     Returns the loss.  With a process `group`, draws are this rank's rows."""
-    cdt = compute_dtype(tcfg)
-    with torch.set_grad_enabled(not warmup):
-        fake = _fake(state.g, _latent(state.g, draws), draws, cdt).float()  # ADA and D take f32
-        if tcfg.augment:
-            fake = _augment(tcfg, fake, state.ada_p, draws)
-        pred, _ = state.d(fake, dtype=cdt, group=group)
-        loss = g_nonsaturating_loss(pred.float())
-    _g_step(state, loss, warmup, group)
-    if do_ema:
-        ema(state.g_ema, state.g, tcfg.ema_accum)
-        ema(state.d_ema, state.d, tcfg.ema_accum)
-    return reduce_mean(loss.detach(), group)
+    with span("train.g"):
+        cdt = compute_dtype(tcfg)
+        with torch.set_grad_enabled(not warmup):
+            fake = _fake(state.g, _latent(state.g, draws), draws, cdt).float()  # ADA and D take f32
+            if tcfg.augment:
+                fake = _augment(tcfg, fake, state.ada_p, draws)
+            pred, _ = state.d(fake, dtype=cdt, group=group)
+            loss = g_nonsaturating_loss(pred.float())
+        _g_step(state, loss, warmup, group)
+        if do_ema:
+            ema(state.g_ema, state.g, tcfg.ema_accum)
+            ema(state.d_ema, state.d, tcfg.ema_accum)
+        return reduce_mean(loss.detach(), group)
 
 
 def path_phase(state: TrainState, tcfg: TrainConfig, draws: Draws, warmup: bool, group: Group = None,
@@ -293,22 +297,23 @@ def path_phase(state: TrainState, tcfg: TrainConfig, draws: Draws, warmup: bool,
     With a process `group`, draws are this rank's rows of the path batch;
     with `replicated`, every rank holds the whole path batch, computes what
     one process computes, and takes rank 0's gradients, penalty and mean."""
-    stats_group = None if replicated else group
-    with torch.no_grad():
-        latent = _latent(state.g, draws)
-    latent.requires_grad_(True)
-    fake = _fake(state.g, latent, draws)
-    (grad_lat,) = torch.autograd.grad((fake * draws.noise_img).sum(), latent, create_graph=True)
-    penalty, new_mean, lengths = path_stats(grad_lat, state.mean_path_length, group=stats_group)
-    _g_step(state, tcfg.path_regularize * tcfg.g_reg_every * penalty, warmup, group, replicated)
-    ema(state.g_ema, state.g, tcfg.ema_accum)
-    ema(state.d_ema, state.d, tcfg.ema_accum)
-    out = torch.stack([reduce_mean(penalty.detach(), stats_group),
-                       all_gather_rows(lengths.detach(), stats_group).mean(), new_mean])
-    if replicated:
-        replicate([out], group)
-    state.mean_path_length = out[2].clone()
-    return out[0], out[1]
+    with span("train.path"):
+        stats_group = None if replicated else group
+        with torch.no_grad():
+            latent = _latent(state.g, draws)
+        latent.requires_grad_(True)
+        fake = _fake(state.g, latent, draws)
+        (grad_lat,) = torch.autograd.grad((fake * draws.noise_img).sum(), latent, create_graph=True)
+        penalty, new_mean, lengths = path_stats(grad_lat, state.mean_path_length, group=stats_group)
+        _g_step(state, tcfg.path_regularize * tcfg.g_reg_every * penalty, warmup, group, replicated)
+        ema(state.g_ema, state.g, tcfg.ema_accum)
+        ema(state.d_ema, state.d, tcfg.ema_accum)
+        out = torch.stack([reduce_mean(penalty.detach(), stats_group),
+                           all_gather_rows(lengths.detach(), stats_group).mean(), new_mean])
+        if replicated:
+            replicate([out], group)
+        state.mean_path_length = out[2].clone()
+        return out[0], out[1]
 
 
 def run_iteration(
@@ -330,42 +335,43 @@ def run_iteration(
     With a process `group`, real_img is this rank's rows of the global
     batch, and the draws (given or sampled) are the global batch's: each
     phase takes this rank's rows of them."""
-    draws = dict(draws or {})
-    gcfg = state.g.cfg
+    with span("train.iteration"):
+        draws = dict(draws or {})
+        gcfg = state.g.cfg
 
-    def phase_draws(phase: str, batch: int) -> Draws:
-        if phase not in draws:
-            ada_batch = {"d": 2 * batch, "g": batch}.get(phase, 0)
-            draws[phase] = sample_draws(gen, gcfg, tcfg, batch, path=phase == "path", ada_p=state.ada_p,
-                                        ada_batch=ada_batch)
-        return draws[phase]
+        def phase_draws(phase: str, batch: int) -> Draws:
+            if phase not in draws:
+                ada_batch = {"d": 2 * batch, "g": batch}.get(phase, 0)
+                draws[phase] = sample_draws(gen, gcfg, tcfg, batch, path=phase == "path", ada_p=state.ada_p,
+                                            ada_batch=ada_batch)
+            return draws[phase]
 
-    warmup = i < tcfg.warmup_iter
-    zero = torch.zeros((), device=real_img.device)
-    world = world_size(group)
-    d_draws = local_draws(phase_draws("d", real_img.shape[0] * world), group)
-    metrics, real_aug = d_phase(state, tcfg, real_img, d_draws, warmup, group)
+        warmup = i < tcfg.warmup_iter
+        zero = torch.zeros((), device=real_img.device)
+        world = world_size(group)
+        d_draws = local_draws(phase_draws("d", real_img.shape[0] * world), group)
+        metrics, real_aug = d_phase(state, tcfg, real_img, d_draws, warmup, group)
 
-    metrics["r1"] = zero
-    if i % tcfg.d_reg_every == 0:
-        metrics["r1"] = r1_phase(state, tcfg, real_aug, warmup, group)
+        metrics["r1"] = zero
+        if i % tcfg.d_reg_every == 0:
+            metrics["r1"] = r1_phase(state, tcfg, real_aug, warmup, group)
 
-    # as in rick_tpu: no path phase during warmup, so neither G nor the mean
-    # path length moves there
-    path_fires = i % tcfg.g_reg_every == 0 and i >= tcfg.warmup_iter
-    g_draws = local_draws(phase_draws("g", tcfg.batch), group)
-    metrics["g"] = g_phase(state, tcfg, g_draws, warmup, do_ema=not path_fires, group=group)
+        # as in rick_tpu: no path phase during warmup, so neither G nor the mean
+        # path length moves there
+        path_fires = i % tcfg.g_reg_every == 0 and i >= tcfg.warmup_iter
+        g_draws = local_draws(phase_draws("g", tcfg.batch), group)
+        metrics["g"] = g_phase(state, tcfg, g_draws, warmup, do_ema=not path_fires, group=group)
 
-    metrics["path"] = metrics["path_length"] = zero
-    if path_fires:
-        path_batch = max(1, tcfg.batch // tcfg.path_batch_shrink)
-        replicated = group is not None and path_batch % world != 0
-        p_draws = phase_draws("path", path_batch)
-        if not replicated:
-            p_draws = local_draws(p_draws, group)
-        metrics["path"], metrics["path_length"] = path_phase(state, tcfg, p_draws, warmup, group, replicated)
-    metrics["mean_path_length"] = state.mean_path_length
-    return metrics
+        metrics["path"] = metrics["path_length"] = zero
+        if path_fires:
+            path_batch = max(1, tcfg.batch // tcfg.path_batch_shrink)
+            replicated = group is not None and path_batch % world != 0
+            p_draws = phase_draws("path", path_batch)
+            if not replicated:
+                p_draws = local_draws(p_draws, group)
+            metrics["path"], metrics["path_length"] = path_phase(state, tcfg, p_draws, warmup, group, replicated)
+        metrics["mean_path_length"] = state.mean_path_length
+        return metrics
 
 
 @torch.inference_mode()

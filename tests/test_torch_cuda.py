@@ -86,6 +86,22 @@ def test_convt_blur_act_kernel_matches_plain(cuda, N, Cin, Cout, H, noise_batch)
     assert _rel(ops.convt_blur_act(*a, use_act=False), ops.convt_blur_act_ref(*a, use_act=False)) <= 1e-4
 
 
+def test_wrappers_count_their_calls_on_the_card(cuda):
+    """Inside `trace.recording()` each wrapper call on the card is counted
+    once with its host time, a backward's K2 among them; outside, none."""
+    from rick_tpu_torch.utils import trace
+
+    x = _rand((2, 8, 16, 16), 0, device=cuda).requires_grad_(True)
+    b = _rand((8,), 1, device=cuda)
+    with trace.recording():
+        ops.fused_bias_act(x, b).sum().backward()
+        got = trace.counters()
+    assert {k: calls for k, (calls, _) in got.items()} == {"ops.fused_bias_act": 1, "ops.fused_bias_act_bwd": 1}
+    assert all(ns > 0 for _, ns in got.values())
+    ops.fused_bias_act(x.detach(), b)
+    assert trace.counters() == got
+
+
 @pytest.mark.parametrize("shape", [(2, 8, 16, 16), (4, 32), (3, 5, 7, 9), (2, 3, 1, 1)])
 @pytest.mark.parametrize("with_bias", [False, True])
 def test_fused_bias_act_bwd_kernel_matches_plain(cuda, shape, with_bias):
