@@ -8,17 +8,20 @@ Phases, each raising on failure:
   1. build the CUDA kernels of `rick_tpu_torch/csrc` (one nvcc per source, in
      parallel); print every kernel's registers and spills (ptxas), and the
      HGMMA (wgmma) count in the SASS of each of K4's 12 instantiations (4
-     stages x 3 tiles); K4 must not spill and its conv must run on the
-     tensor cores
+     stages x 3 tiles) and of K6's 3 (tiles); K4 and K6 must not spill and
+     their convs must run on the tensor cores
   2. per forward kernel: compare with its plain PyTorch version at every shape
      the 256px G/D forward gives it (batch 4, TF32 off), and time both: the
      kernel's device time (torch.profiler, `device_ms`) and CUDA events
      around 20 calls of its wrapper (`ms_with_host`, which at small shapes
-     is the wrapper's host time), beside its bound (`tools/roofline.py`)
+     is the wrapper's host time), beside its bound (`tools/roofline.py`);
+     K6 at the seven batch-100 shapes of the evaluation's chunk, also beside
+     the route it replaced (`library_ms`: x * s, cuDNN's f32 conv, K3)
   3. the generation slice: seeded 256px G and D on the card, saved and loaded
      back as a rosinality {g, g_ema, d} checkpoint, then sample_images on 25
      fixed latents, a batch-100 random-noise generation and D on 16 of the
-     images; K1, K3 and K4 must have launched in that run
+     images; K1, K4 and K6 must have launched in that run (G's stride-1
+     StyledConvs take K6 under fast=True, so K3 f32 does not)
   4. the generation slice vs the plain path: the same weights on the CPU,
      where the port takes the plain versions; G (fixed latents, constant
      noise, and a mixing call) and D compared within 1e-3 * max|ref|
@@ -49,8 +52,9 @@ Phases, each raising on failure:
  11. the eval slice: seeded 256px g_ema, the seeded Inception with randomized
      batch-norm statistics, 5000 seeded uint8 "real" images; the recipe's
      Evaluator (5000 samples, gen_batch 100, real batch 25) and one
-     compute_inception_score; FID finite, K4/K3/K1 launched 6/7/8 times per
-     chunk; the device Fréchet distance against scipy on the same statistics
+     compute_inception_score; FID finite, K4/K6/K1 launched 6/7/8 times per
+     chunk and K3 (f32) not at all; the device Fréchet distance against scipy
+     on the same statistics
  12. the eval slice vs the plain path: 8 fixed latents with constant noise
      through g_ema on the card (K4) and the CPU (plain chain), then the full
      299px Inception on each; mu/cov of a 16-image run on each
@@ -83,12 +87,12 @@ Phases, each raising on failure:
      the card against the CPU (TF32 off); (b) the recipe's Evaluator with
      compute_pr on phase 11's g_ema and real set (5000 samples, the real
      activations reused): one compute_inception_score(pr=True), P&R in
-     [0, 1], K4/K3/K1 launched 6/7/8 times per chunk for each of FID and
+     [0, 1], K4/K6/K1 launched 6/7/8 times per chunk for each of FID and
      P&R, the device f64 distances and radii against numpy's on 500 rows,
      VGG16 img/s, the distances' seconds; (c) `cli.intra_lpips prepare` on
      phase 14's 10 training images and `compute` of its best.pt at the
      protocol's defaults (1000 samples, k 10, clusters of 50, batch 8):
-     finite and > 0, K1/K3/K4 launched, the wall split into sampling,
+     finite and > 0, K1/K4/K6 launched, the wall split into sampling,
      assignment and pairs; 50 of the samples scored also by rick_tpu's
      loops (VGG on both inputs of every LPIPS call): the labels equal, the
      values within 1e-5, both timed; (d) `cli.fid`, `cli.kid` and
@@ -120,7 +124,7 @@ Phases, each raising on failure:
      holds the card to the CPU, the two ranks' states bitwise equal; a
      Fisher accumulation of 4 images sharded 2 per rank against the
      unsharded one; a sharded FID@1000 of phase 11's g_ema against one
-     process's mu, cov and FID within 1e-3 (K4/K3/K1 6/7/8 per chunk); the
+     process's mu, cov and FID within 1e-3 (K4/K6/K1 6/7/8 per chunk); the
     draws of 120 samples at gen_batch 14, chunks of 15 per rank against 12
     in one process, each rank's rows bitwise one process's.
      Two ranks share one card here: a correctness run, not a multi-GPU speed
@@ -206,6 +210,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from rick_tpu_torch.augment import apply_affine, augment, sample_affine, sample_color
 from rick_tpu_torch.ckpt import load_checkpoint, load_state, save_state, train_state_from_jax, train_state_to_jax
@@ -276,6 +281,8 @@ from rick_tpu_torch.ops import (
     fused_bias_act_bwd_ref,
     fused_bias_act_ref,
     launch_counts,
+    modconv_act,
+    modconv_act_ref,
     modconv_epilogue,
     modconv_epilogue_ref,
     reset_launch_counts,
@@ -290,6 +297,7 @@ from rick_tpu_torch.tools.roofline import (
     bound,
     convt_ops,
     fused_bias_act_bytes,
+    modconv_act_work,
     modconv_epilogue_bytes,
 )
 from rick_tpu_torch.train import (
@@ -318,9 +326,10 @@ MASKED_ITER = 32
 N_FISHER = 5
 SLICE_TOL = 1e-3  # generation slice vs plain: max|d| <= SLICE_TOL * max|ref|, TF32 off
 # per-kernel: max|d| <= tol * max|ref|.  K1, K2 and K3 are elementwise (at most
-# an FMA contraction apart); K4 sums 9*Cin products in another order than cuDNN.
+# an FMA contraction apart); K4 and K6 sum 9*Cin products in another order than
+# cuDNN.
 KERNEL_TOL = {"fused_bias_act": 1e-6, "fused_bias_act_bwd": 1e-6, "modconv_epilogue": 1e-6, "convt_blur_act": 1e-4,
-              "fused_bias_act_bf16": 1e-6, "modconv_epilogue_bf16": 1e-6}
+              "modconv_act": 1e-4, "fused_bias_act_bf16": 1e-6, "modconv_epilogue_bf16": 1e-6}
 # autograd through the kernels vs plain autograd, relative to max|ref|: K2
 # applies the slope before the gain where autograd of the plain version
 # applies it after (an ulp), and the bias, demod, noise and noise-weight
@@ -362,6 +371,8 @@ SOURCES = {
     "fused_bias_act_bwd": ("rick_tpu_torch/csrc/fused_bias_act.cu", "rick_tpu/ops/pallas_kernels.py:126"),
     "modconv_epilogue": ("rick_tpu_torch/csrc/modconv_epilogue.cu", "rick_tpu/ops/pallas_kernels.py:176"),
     "convt_blur_act": ("rick_tpu_torch/csrc/convt_blur_act.cu", "rick_tpu/ops/fused_upsample.py:257"),
+    "modconv_act": ("rick_tpu_torch/csrc/modconv_act.cu",
+                    "none: XLA's conv (rick_tpu/nn/blocks.py) + rick_tpu/ops/pallas_kernels.py:176, fused"),
 }
 K5_SOURCE = ("rick_tpu_torch/csrc/convt_blur_act.cu", "scripts/bench_fused_ablate.py:153")
 
@@ -478,14 +489,16 @@ def norm_err(got: torch.Tensor, ref: torch.Tensor) -> float:
     return d / r if r > 0 else (0.0 if d == 0 else math.inf)
 
 
-def case(name, label, kern, plain, nbytes, flops, tf32_flops=0, *, kernel: str, floor=None, **extra):
+def case(name, label, kern, plain, nbytes, flops, tf32_flops=0, *, kernel: str, floor=None, library=None,
+         **extra):
     """A kernel check: `flops` on the CUDA cores (f32), `tf32_flops` on the
     tensor cores (TF32), both as the bound counts them; `kernel` the CUDA
     kernel's name (or a part of it) as the profiler shows it; `floor` None or
     a call that launches the empty kernel with the case's grid (the launch
-    floor the bound counts)."""
+    floor the bound counts); `library` None or the library route the kernel
+    is held to (`library_ms`, CUDA events)."""
     return dict(name=name, label=label, kern=kern, plain=plain, nbytes=nbytes, flops=flops, tf32_flops=tf32_flops,
-                kernel=kernel, floor=floor, **extra)
+                kernel=kernel, floor=floor, library=library, **extra)
 
 
 def run_cases(cases) -> dict:
@@ -508,15 +521,17 @@ def run_cases(cases) -> dict:
             ms_with_host, plain_ms = cuda_ms(c["kern"]), cuda_ms(c["plain"])
             bound_ms, bound_by = bound(c["nbytes"], c["flops"], c["tf32_flops"])
             floor_ms = device_ms(c["floor"], "empty_kernel") if c["floor"] else None
+            library_ms = cuda_ms(c["library"]) if c["library"] else None
             least_ms, least_by = bound(c["nbytes"], c["flops"], c["tf32_flops"], floor_ms or 0.0)
             floor = f" floor_ms={floor_ms:.5f}" if floor_ms is not None else ""
+            library = f" library_ms={library_ms:.4f}" if library_ms is not None else ""
             print(f"  {name:21s} {label:44s} max_abs_err={abs_err:.3e} rel={rel:.3e} device_ms={ms:.5f} "
-                  f"ms_with_host={ms_with_host:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by})"
-                  f"{floor}; {least_ms / ms:.0%} of {least_ms:.5f} ({least_by})", flush=True)
+                  f"ms_with_host={ms_with_host:.4f} plain_ms={plain_ms:.4f}{library} bound_ms={bound_ms:.5f} "
+                  f"({bound_by}){floor}; {least_ms / ms:.0%} of {least_ms:.5f} ({least_by})", flush=True)
             require(rel <= KERNEL_TOL[name], f"{name} {label}: rel err {rel:.3e} > {KERNEL_TOL[name]}")
             rows.append(dict(kernel=name, shape=label, max_abs_err=abs_err, ms=ms, ms_with_host=ms_with_host,
-                             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, launch_floor_ms=floor_ms,
-                             share=least_ms / ms))
+                             plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                             launch_floor_ms=floor_ms, share=least_ms / ms))
             del got, ref
     per_kernel = {}
     for name in {r["kernel"] for r in rows}:
@@ -580,6 +595,33 @@ def forward_cases(gen: torch.Generator):
     return cases
 
 
+# G's seven stride-1 StyledConvs at 256px: (C, H), C -> C
+K6_SHAPES = ((512, 4), (512, 8), (512, 16), (512, 32), (512, 64), (256, 128), (128, 256))
+
+
+def k6_cases(gen: torch.Generator):
+    """K6 at the seven shapes of an evaluation's chunk (batch 100, fresh
+    noise), beside the route it replaced: x * s, cuDNN's f32 conv, K3."""
+    dev, cases = DEV, []
+    for C, H in K6_SHAPES:
+        x = torch.randn((GEN_BATCH, C, H, H), generator=gen, device=dev)
+        s = torch.rand((GEN_BATCH, C), generator=gen, device=dev) + 0.5
+        w = torch.randn((C, C, 3, 3), generator=gen, device=dev) / (9 * C) ** 0.5
+        demod = torch.rand((GEN_BATCH, C), generator=gen, device=dev) + 0.5
+        noise = torch.randn((GEN_BATCH, 1, H, H), generator=gen, device=dev)
+        a = (x, s, w, demod, noise, torch.full((1,), 0.3, device=dev), torch.randn(C, generator=gen, device=dev) * 0.1)
+
+        def library(a=a):
+            x, s, w, demod, noise, nw, bias = a
+            return modconv_epilogue(F.conv2d(x * s[:, :, None, None], w, padding=1), demod, noise, nw, bias)
+
+        nbytes, flops, tf32_flops = modconv_act_work(GEN_BATCH, C, C, H, H, GEN_BATCH)
+        cases.append(case("modconv_act", f"{(GEN_BATCH, C, H, H)}->{C} noise batch {GEN_BATCH}",
+                          lambda a=a: modconv_act(*a), lambda a=a: modconv_act_ref(*a), nbytes, flops, tf32_flops,
+                          kernel="modconv_act_kernel", library=library))
+    return cases
+
+
 # ---------------------------------------------------------------------------
 # phases 3-5: the generation slice
 # ---------------------------------------------------------------------------
@@ -635,8 +677,9 @@ def run_slice(g_ema, d) -> dict:
     require(tuple(score.shape) == (D_BATCH, 1), f"D score shape {tuple(score.shape)}")
     for name, t in [("grid", grid), ("images", imgs), ("score", score)] + [(f"D feat {i}", f) for i, f in enumerate(feats)]:
         require(bool(torch.isfinite(t).all()), f"non-finite values in {name}")
-    forward = ("fused_bias_act", "modconv_epilogue", "convt_blur_act")
+    forward = ("fused_bias_act", "convt_blur_act", "modconv_act")
     require(all(counts[k] > 0 for k in forward), f"a forward kernel did not launch in generation: {counts}")
+    require(counts["modconv_epilogue"] == 0, f"K3 (f32) launched in generation, where K6 takes its layers: {counts}")
     return counts
 
 
@@ -1110,7 +1153,7 @@ def eval_slice(g_ema, ev) -> dict:
     print(f"  FID@{EVAL_N} (seeded Inception, not a quality measure): {score['fid']:.6f}; {wall:.2f} s "
           f"(first call); launches {counts}", flush=True)
     require(math.isfinite(score["fid"]), f"FID is not finite: {score}")
-    per_chunk = {"convt_blur_act": 6, "modconv_epilogue": 7, "fused_bias_act": 8}
+    per_chunk = {"convt_blur_act": 6, "modconv_act": 7, "modconv_epilogue": 0, "fused_bias_act": 8}
     for name, k in per_chunk.items():
         require(counts[name] == k * ev.n_chunks, f"{name} launched {counts[name]} times, not {k} x {ev.n_chunks}")
     mu, cov = ev.last_stats
@@ -1666,7 +1709,7 @@ def pr_eval(g_ema, ev, incp, real, card: str) -> dict:
           f"{sum(t_dist.seconds.values()):.3f}); launches {counts} [{card}]", flush=True)
     require(0.0 <= score["precision"] <= 1.0 and 0.0 <= score["recall"] <= 1.0, f"P&R out of [0, 1]: {score}")
     require(math.isfinite(score["fid"]), f"FID is not finite: {score}")
-    per_chunk = {"convt_blur_act": 6, "modconv_epilogue": 7, "fused_bias_act": 8}
+    per_chunk = {"convt_blur_act": 6, "modconv_act": 7, "modconv_epilogue": 0, "fused_bias_act": 8}
     for name, k in per_chunk.items():
         require(counts[name] == 2 * k * ev_pr.n_chunks,
                 f"{name} launched {counts[name]} times, not {k} x {ev_pr.n_chunks} for each of FID and P&R")
@@ -1800,7 +1843,7 @@ def intra_lpips_phase(root: str, card: str) -> dict:
           f"sampling {sample_s:.3f} + assignment {assign_s:.3f} + pairs (and the preprocess) {compute_s - assign_s:.3f} "
           f"+ the rest (VGG16 load, centers) {wall - sample_s - compute_s:.3f}; launches {counts} [{card}]", flush=True)
     require(math.isfinite(value) and value > 0, f"intra-LPIPS {line}")
-    require(all(counts[k] > 0 for k in ("fused_bias_act", "modconv_epilogue", "convt_blur_act")),
+    require(all(counts[k] > 0 for k in ("fused_bias_act", "convt_blur_act", "modconv_act")),
             f"a generation kernel did not launch in intra_lpips compute: {counts}")
 
     samples = intra_lpips_cli.sample_checkpoint(best, SIZE, INTRA_REF_N, 0, torch.device(DEV))
@@ -2129,8 +2172,8 @@ def bf16_eval(g_ema, ev, incp, card: str) -> dict:
     print(f"  bf16 vs f32 generation, {GEN_BATCH} latents: activations {rel:.3e} of max|ref|, {nrel:.3e} in norm; "
           f"chunk {ms16:.2f} ms bf16 / {ms32:.2f} ms f32 [{card}]; FID@{GEN_BATCH} bf16 {fid16:.4f}; launches {counts}",
           flush=True)
-    per_chunk = {"convt_blur_act": 6, "modconv_epilogue": 6, "modconv_epilogue_bf16": 1, "fused_bias_act": 8,
-                 "fused_bias_act_bf16": 0}
+    per_chunk = {"convt_blur_act": 6, "modconv_act": 6, "modconv_epilogue": 0, "modconv_epilogue_bf16": 1,
+                 "fused_bias_act": 8, "fused_bias_act_bf16": 0}
     require(all(counts[k] == v for k, v in per_chunk.items()), f"bf16 chunk launches {counts}, not {per_chunk}")
     require(bool(torch.isfinite(acts16).all()) and rel <= BF16_EVAL_TOL and math.isfinite(fid16),
             f"bf16 generation: {rel:.3e} > {BF16_EVAL_TOL} or FID {fid16}")
@@ -2446,7 +2489,7 @@ def dp_ranks(files: dict, card: str) -> dict:
     print(f"  (b) {wall:.1f} s in all, phases and Fisher {a['phases_s']:.2f} s, evaluation {a['eval_s']:.2f} s on "
           f"rank 0 ({DP_LABEL}) [{card}]; launches, both ranks: phases and Fisher {phases}, evaluation {evals}",
           flush=True)
-    per_chunk = {"convt_blur_act": 6, "modconv_epilogue": 7, "fused_bias_act": 8}
+    per_chunk = {"convt_blur_act": 6, "modconv_act": 7, "modconv_epilogue": 0, "fused_bias_act": 8}
     for name, k in per_chunk.items():
         require(evals[name] == k * DP_EVAL_N // GEN_BATCH, f"{name} launched {evals[name]} times in the evaluation")
     training = ("fused_bias_act", "fused_bias_act_bwd", "modconv_epilogue")
@@ -3137,9 +3180,16 @@ def main() -> int:
     print(f"  SASS HGMMA per K4 instantiation: {hgmma}", flush=True)
     no_mma = [k for k, v in hgmma.items() if not v and "kernel<0," not in k and "kernelILi0E" not in k]
     require(len(hgmma) == 12 and not no_mma, f"K4's conv has no HGMMA in {no_mma or hgmma}")
+    k6 = [fn for fn in report if "modconv_act_kernel" in fn["name"]]
+    spilled = [fn["name"] for fn in k6 if fn["spill_stores"] or fn["spill_loads"]]
+    require(len(k6) == 3 and not spilled, f"K6's kernel: {len(k6)} instantiations (3 tiles), spills in {spilled}")
+    hgmma = {k: v for k, v in _build.sass_counts("HGMMA").items() if "modconv_act_kernel" in k}
+    print(f"  SASS HGMMA per K6 instantiation: {hgmma}", flush=True)
+    require(len(hgmma) == 3 and all(hgmma.values()), f"K6's conv has no HGMMA in {hgmma}")
 
-    print(f"[2] forward kernels vs plain, batch {B}, TF32 off", flush=True)
+    print(f"[2] forward kernels vs plain, batch {B} (K6 at batch {GEN_BATCH}), TF32 off", flush=True)
     per_kernel = run_cases(forward_cases(torch.Generator(device=DEV).manual_seed(1234)))
+    per_kernel.update(run_cases(k6_cases(torch.Generator(device=DEV).manual_seed(1235))))
 
     print("[3] generation slice: 256px G/D, checkpoint round trip, sample grid, batch-100 generation, D", flush=True)
     with tempfile.TemporaryDirectory() as tmpdir:
@@ -3295,7 +3345,7 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces, launches=sum(by_run.values()),
             max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
-            bound_by=k["bound_by"], library_ms=None, shape=k["shape"], launches_by_run=by_run,
+            bound_by=k["bound_by"], library_ms=k.get("library_ms"), shape=k["shape"], launches_by_run=by_run,
             ms_with_host=k["ms_with_host"],
         ))
     kernels += k5["entries"]

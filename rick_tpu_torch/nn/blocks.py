@@ -19,12 +19,13 @@ in torch, and a 0-d f32 times a bf16 tensor is bf16).  The activations'
 biases stay f32, so the first biased activation after a bf16 layer gives
 f32, as JAX promotes bf16 + f32.
 
-`StyledConv` runs through the fused kernels: the upsample branch through
-`convt_blur_act` when the caller asks for it (`fast=True`, forward only, as
-in JAX), else through the differentiable chain; the other branch (with
-noise) through `modconv_epilogue`; every activation elsewhere through
-`fused_bias_act`.  Each kernel wrapper takes its plain version on a CPU
-tensor.
+`StyledConv` runs through the fused kernels: when the caller asks for it
+(`fast=True`, forward only, as in JAX), the upsample branch through
+`convt_blur_act` and the other branch, with noise and an f32 input, through
+`modconv_act`; else the upsample branch through the differentiable chain and
+the other (with noise) through `modconv_epilogue`; every activation
+elsewhere through `fused_bias_act`.  Each kernel wrapper takes its plain
+version on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from rick_tpu_torch.ops import (
     convt_blur_act,
     fused_leaky_relu,
     make_kernel,
+    modconv_act,
     modconv_epilogue,
     scaled_leaky_relu,
     upfirdn2d,
@@ -165,15 +167,21 @@ class ModulatedConv2d(nn.Module):
             p = (len(blur_kernel) - 2) + (kernel_size - 1)
             self.blur = Blur(blur_kernel, ((p + 1) // 2, p // 2), device=device)
 
-    def modulate(self, x, style):
-        """(x * style, scaled 4-D weight, demod (B, out) or None), in x's
-        dtype; the demod sums in f32."""
+    def styles(self, style, dtype: torch.dtype):
+        """(style (B, in), scaled 4-D weight in `dtype`, demod (B, out) in
+        `dtype` or None); the demod sums in f32."""
         s = self.modulation(style)  # (B, in)
-        weight = self.weight[0].to(x.dtype) * weak_scalar(self.scale, x.dtype)
+        weight = self.weight[0].to(dtype) * weak_scalar(self.scale, dtype)
         demod = None
         if self.demodulate:
             w2 = (weight * weight).float().sum(dim=(2, 3))  # (out, in)
-            demod = torch.rsqrt((s * s).float() @ w2.t() + 1e-8).to(x.dtype)
+            demod = torch.rsqrt((s * s).float() @ w2.t() + 1e-8).to(dtype)
+        return s, weight, demod
+
+    def modulate(self, x, style):
+        """(x * style, scaled 4-D weight, demod (B, out) or None), in x's
+        dtype; the demod sums in f32."""
+        s, weight, demod = self.styles(style, x.dtype)
         return x * s[:, :, None, None].to(x.dtype), weight, demod
 
     def forward(self, x, style, *, defer_demod: bool = False):
@@ -234,11 +242,12 @@ class StyledConv(nn.Module):
     """ModulatedConv2d + NoiseInjection + FusedLeakyReLU.  `noise` is
     (B|1, 1, H', W') at the output resolution, or None.
 
-    `fast=True` sends the upsample branch through `convt_blur_act` (K4,
-    forward only: for generation); `fast=False`, the default as in JAX, takes
-    the training chain conv_transpose2d -> demod -> blur -> noise ->
-    FusedLeakyReLU.  The branch without upsample and with noise takes
-    `modconv_epilogue` either way."""
+    `fast=True` sends the upsample branch through `convt_blur_act` (K4) and
+    the branch without upsample, given noise and an f32 input, through
+    `modconv_act` (K6): both forward only, for generation.  `fast=False`,
+    the default as in JAX, takes the training chains: conv_transpose2d ->
+    demod -> blur -> noise -> FusedLeakyReLU, and x * style -> conv2d ->
+    `modconv_epilogue`, which is also the bf16 input's route."""
 
     def __init__(
         self, in_ch: int, out_ch: int, kernel_size: int, style_dim: int, *,
@@ -265,6 +274,9 @@ class StyledConv(nn.Module):
                 xs, weight, demod, noise_s, self.activate.bias,
                 blur_kernel=self.conv.blur_kernel,
             )
+        if fast and not self.conv.upsample and noise is not None and x.dtype == torch.float32:
+            s, weight, demod = self.conv.styles(style, x.dtype)
+            return modconv_act(x, s, weight, demod, noise, self.noise.weight, self.activate.bias)
         if not self.conv.upsample and noise is not None:
             out, demod = self.conv(x, style, defer_demod=True)
             return modconv_epilogue(out, demod, noise.to(out.dtype), self.noise.weight.to(out.dtype),

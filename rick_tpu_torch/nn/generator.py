@@ -179,8 +179,9 @@ class Generator(nn.Module):
         of StyledConv outputs (return_feats), or None.  `rng=None` and
         `noise=None` select the registered constant noise buffers.
         `fast=True` runs the upsample StyledConvs through the fused
-        `convt_blur_act` kernel, which is forward only: for generation, not
-        for a pass that is differentiated.
+        `convt_blur_act` kernel and the f32 stride-1 StyledConvs through
+        `modconv_act`, both forward only: for generation, not for a pass
+        that is differentiated.
 
         `dtype` is the trunk's compute dtype, as `generator_apply_latent`'s:
         the constant input is cast to it, and each layer computes in its
@@ -199,14 +200,14 @@ class Generator(nn.Module):
 
         feats = []
         out = self.input(latent.shape[0], dtype)
-        out = self.conv1(out, latent[:, 0], noise[0])
+        out = self.conv1(out, latent[:, 0], noise[0], fast=fast)
         feats.append(out)
         skip = self.to_rgb1(out, latent[:, 1])
         i = 1
         for block, to_rgb in enumerate(self.to_rgbs):
             out = self.convs[2 * block](out, latent[:, i], noise[2 * block + 1], fast=fast)
             feats.append(out)
-            out = self.convs[2 * block + 1](out, latent[:, i + 1], noise[2 * block + 2])
+            out = self.convs[2 * block + 1](out, latent[:, i + 1], noise[2 * block + 2], fast=fast)
             feats.append(out)
             skip = to_rgb(out, latent[:, i + 2], skip)
             i += 2

@@ -1,11 +1,13 @@
 """L0 ops: StyleGAN2 resampling, fused bias/activation, and the CUDA kernels.
 
 Every kernel wrapper (`fused_bias_act`, `fused_bias_act_bwd`,
-`modconv_epilogue`, `convt_blur_act`) takes its plain PyTorch version for CPU
-tensors and launches its CUDA kernel for CUDA tensors; `KERNELS` lists them,
-each with a `launches` count, and inside `utils.trace.recording()` each call
-is counted, with its host time, under `ops.<wrapper>`.  `fused_bias_act` and `modconv_epilogue` are
-differentiable twice; `convt_blur_act` is forward only, as in JAX.
+`modconv_epilogue`, `convt_blur_act`, `modconv_act`) takes its plain PyTorch
+version for CPU tensors and launches its CUDA kernel for CUDA tensors;
+`KERNELS` lists them, each with a `launches` count, and inside
+`utils.trace.recording()` each call is counted, with its host time, under
+`ops.<wrapper>`.  `fused_bias_act` and `modconv_epilogue` are
+differentiable twice; `convt_blur_act` is forward only, as in JAX, and so is
+`modconv_act` (K6: the plain StyledConv's conv and epilogue, for generation).
 `fused_bias_act` and `modconv_epilogue` have a bf16 instantiation too
 (`BF16_KERNELS`), counted apart in `launches_bf16`.
 `convt_blur_act_stage` (K5, the stage ablation of `convt_blur_act`) runs only
@@ -28,6 +30,7 @@ from rick_tpu_torch.ops.kernels import (
     modconv_epilogue,
     modconv_epilogue_ref,
 )
+from rick_tpu_torch.ops.modconv_act import modconv_act, modconv_act_ref
 from rick_tpu_torch.ops.resample import (
     blur,
     downsample2d,
@@ -38,7 +41,7 @@ from rick_tpu_torch.ops.resample import (
     upsample2d,
 )
 
-KERNELS = (fused_bias_act, fused_bias_act_bwd, modconv_epilogue, convt_blur_act)
+KERNELS = (fused_bias_act, fused_bias_act_bwd, modconv_epilogue, convt_blur_act, modconv_act)
 BF16_KERNELS = (fused_bias_act, modconv_epilogue)
 
 
@@ -79,6 +82,8 @@ __all__ = [
     "fused_leaky_relu_kml",
     "launch_counts",
     "make_kernel",
+    "modconv_act",
+    "modconv_act_ref",
     "modconv_epilogue",
     "modconv_epilogue_ref",
     "reset_launch_counts",

@@ -75,6 +75,9 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
         _F, _F, _F, _F, _I, _F, _F, _I, _P,
     ],
+    # x, wt, s, demod, noise, noise_weight, bias, y, N, Cin, Cout, H, W,
+    # noise_batched, slope, gain, stream
+    "rick_modconv_act": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P],
 }
 
 _lib: Optional[types.SimpleNamespace] = None
@@ -178,7 +181,7 @@ def _demangle(names: List[str]) -> List[str]:
     readable = out.splitlines()
     if len(readable) != len(names):
         return names
-    return [r.split("(anonymous namespace)::")[-1].removeprefix("void ").split("(")[0] for r in readable]
+    return [r.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0] for r in readable]
 
 
 def ptxas_report(log: Optional[str] = None) -> List[dict]:

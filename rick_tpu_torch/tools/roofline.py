@@ -7,7 +7,8 @@ read once, each output written once) over the memory rate, its CUDA-core
 operations over the f32 rate, and its tensor-core operations over the TF32
 rate.  K4 (`csrc/convt_blur_act.cu`) runs the transposed conv as 3xTF32, so
 its conv counts three times (hi*hi, hi*lo, lo*hi) at the TF32 rate, and its
-blur and epilogue at the f32 rate.
+blur and epilogue at the f32 rate; so does K6 (`csrc/modconv_act.cu`) its
+3x3 conv and its epilogue.
 
 The launch floor: a kernel takes at least the device time of an empty
 kernel launched with its grid on the same card (`rick_empty_launch`,
@@ -56,3 +57,14 @@ def modconv_epilogue_bytes(batch: int, channels: int, hw: int, noise_batch: int,
     (`in_bytes` an element), the f32 bias read, the f32 y written."""
     out = batch * channels * hw
     return out * (in_bytes + 4) + in_bytes * (batch * channels + noise_batch * hw + 1) + 4 * channels
+
+
+def modconv_act_work(n: int, cin: int, cout: int, h: int, w: int, noise_batch: int):
+    """K6's (bytes, f32 operations, TF32 operations): x, s, the weights,
+    demod, the noise maps, the noise weight and the bias read once, the
+    output written once; the epilogue (4 operations per output) on the CUDA
+    cores; the 3x3 conv (9 taps of Cin per output pixel and channel, as
+    `convt_ops` counts per input pixel) as 3xTF32."""
+    y = n * cout * h * w
+    nbytes = 4 * (n * cin * h * w + n * cin + cout * cin * 9 + n * cout + noise_batch * h * w + 1 + cout + y)
+    return nbytes, 4 * y, TF32_PASSES * convt_ops(n, cin, cout, h, w)

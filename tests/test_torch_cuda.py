@@ -86,6 +86,67 @@ def test_convt_blur_act_kernel_matches_plain(cuda, N, Cin, Cout, H, noise_batch)
     assert _rel(ops.convt_blur_act(*a, use_act=False), ops.convt_blur_act_ref(*a, use_act=False)) <= 1e-4
 
 
+def _modconv_act_args(N, Cin, Cout, H, noise_batch, device, W=None):
+    W = H if W is None else W
+    return [
+        _rand((N, Cin, H, W), 0, device=device),
+        _rand((N, Cin), 1, 0.3, device=device) + 1.0,
+        _rand((Cout, Cin, 3, 3), 2, 1.0 / (9 * Cin) ** 0.5, device=device),
+        _rand((N, Cout), 3, device=device).abs() + 0.5,
+        _rand((noise_batch or N, 1, H, W), 4, device=device),
+        torch.tensor([0.3], device=device),
+        _rand((Cout,), 5, 0.1, device=device),
+    ]
+
+
+# G's seven stride-1 StyledConvs at 256px and batch 100 (the evaluation's
+# chunk), then a ragged batch of 3 on each small tile (4x4: 8 images a tile,
+# 8x8: 2), odd shapes (W % 4 padded, ragged tiles, Cin not a multiple of 8,
+# Cout not a multiple of 128)
+MODCONV_ACT_CARD_CASES = [(100, 512, 512, 4), (100, 512, 512, 8), (100, 512, 512, 16), (100, 512, 512, 32),
+                          (100, 512, 512, 64), (100, 256, 256, 128), (100, 128, 128, 256),
+                          (3, 512, 512, 4), (3, 512, 512, 8), (3, 40, 136, 17), (2, 12, 20, 5), (2, 16, 8, 33)]
+
+
+@pytest.mark.parametrize("N,Cin,Cout,H", MODCONV_ACT_CARD_CASES)
+@pytest.mark.parametrize("noise_batch", [None, 1], ids=["noise_B", "noise_1"])
+def test_modconv_act_kernel_matches_plain(cuda, N, Cin, Cout, H, noise_batch):
+    a = _modconv_act_args(N, Cin, Cout, H, noise_batch, cuda)
+    before = ops.modconv_act.launches
+    with torch.inference_mode():
+        got = ops.modconv_act(*a)
+        ref = ops.modconv_act_ref(*a)
+    assert ops.modconv_act.launches == before + 1
+    # sums of 9*Cin products (3xTF32, f32 accumulation) in another order than cuDNN: 1e-4
+    assert _rel(got, ref) <= 1e-4
+
+
+def test_modconv_act_raises_under_autograd_on_bf16_and_on_bad_shapes(cuda):
+    a = _modconv_act_args(2, 8, 8, 4, None, cuda)
+    a[1].requires_grad_(True)
+    with pytest.raises(NotImplementedError):
+        ops.modconv_act(*a)
+    with torch.no_grad():
+        ops.modconv_act(*a)
+    a[1] = a[1].detach()
+    with pytest.raises(ValueError, match="dtype"):
+        ops.modconv_act(a[0].bfloat16(), *a[1:])
+    with pytest.raises(ValueError, match="dtype"):
+        ops.modconv_act(*a[:3], a[3].bfloat16(), *a[4:])
+    with pytest.raises(ValueError, match="weight"):
+        ops.modconv_act(a[0], a[1], a[2][:, :, :2, :2].contiguous(), *a[3:])
+    with pytest.raises(ValueError, match="s "):
+        ops.modconv_act(a[0], a[1][:, :4].contiguous(), *a[2:])
+    with pytest.raises(ValueError, match="demod"):
+        ops.modconv_act(*a[:3], a[3][:1].contiguous(), *a[4:])
+    with pytest.raises(ValueError, match="noise"):
+        ops.modconv_act(*a[:4], torch.zeros((2, 1, 8, 8), device=cuda), *a[5:])
+    with pytest.raises(ValueError, match="bias"):
+        ops.modconv_act(*a[:6], torch.zeros(5, device=cuda))
+    with pytest.raises(ValueError, match="4-D"):
+        ops.modconv_act(a[0][0], *a[1:])
+
+
 def test_wrappers_count_their_calls_on_the_card(cuda):
     """Inside `trace.recording()` each wrapper call on the card is counted
     once with its host time, a backward's K2 among them; outside, none."""
@@ -304,7 +365,9 @@ def test_small_generator_and_discriminator_match_the_cpu_path(cuda):
         got, got_f = g_c([z1.to(cuda), z2.to(cuda)], inject_index=3, return_feats=True, fast=True)
         got_s = d_c(want.to(cuda))[0]
     counts = ops.launch_counts()
-    assert counts.pop("fused_bias_act_bwd") == 0 and all(v > 0 for v in counts.values()), counts
+    # G's stride-1 StyledConvs take K6 under fast=True, so K3 (f32) stays 0 here
+    assert counts.pop("fused_bias_act_bwd") == 0 and counts.pop("modconv_epilogue") == 0, counts
+    assert all(v > 0 for v in counts.values()), counts
     for a, b in [(got, want), (got_s, want_s)] + list(zip(got_f, want_f)):
         assert _rel(a, b) <= 1e-4
 
@@ -345,7 +408,8 @@ def test_small_training_iteration_matches_the_cpu_path(cuda):
     card = copy.deepcopy(cpu).to(cuda)
     ops.reset_launch_counts()
     got = run_iteration(card, tcfg, real.to(cuda), 0, draws={k: v.to(cuda) for k, v in draws.items()})
-    assert all(v > 0 for k, v in ops.launch_counts().items() if k != "convt_blur_act")
+    assert all(v > 0 for k, v in ops.launch_counts().items() if k not in ("convt_blur_act", "modconv_act"))
+    assert ops.modconv_act.launches == 0  # generation only, like convt_blur_act
     want = run_iteration(cpu, tcfg, real, 0, draws=draws)
     for k in want:
         assert abs(float(got[k]) - float(want[k])) <= 1e-3 * max(1.0, abs(float(want[k]))), k
@@ -450,10 +514,11 @@ def test_uint8_activations_on_the_card_match_the_cpu(cuda):
 
 
 def test_small_evaluator_matches_the_cpu_path(cuda):
-    """16px g_ema through K4 on the card and the plain chain on the CPU, into
-    the cut Inception: activations within 1e-4 of max|ref|; the FID of the
-    card's draws is finite, and K4 launched 6 times... per chunk (2 upsample
-    layers at 16px, 2 chunks)."""
+    """16px g_ema through K4 and K6 on the card and the plain chain on the
+    CPU, into the cut Inception: activations within 1e-4 of max|ref|; the
+    FID of the card's draws is finite; per chunk (2 chunks) K4 launched
+    twice (2 upsample layers at 16px), K6 three times (conv1 and the second
+    conv of 2 blocks), and K3 (f32) not at all."""
     from rick_tpu_torch.metrics import Evaluator, inception_init_np
     from rick_tpu_torch.nn import GeneratorConfig
 
@@ -467,9 +532,10 @@ def test_small_evaluator_matches_the_cpu_path(cuda):
     g_c = g.to(cuda)
     ops.reset_launch_counts()
     got = ev.activations(g_c, z.to(cuda))
-    assert ops.launch_counts()["convt_blur_act"] == 2 * 2
+    per_eval = {"convt_blur_act": 2 * 2, "modconv_act": 3 * 2, "modconv_epilogue": 0}
+    assert {k: ops.launch_counts()[k] for k in per_eval} == per_eval
     assert _rel(got, want) <= 1e-4
     ops.reset_launch_counts()
     score = ev.compute_inception_score(g_c, kid=True)
     assert np.isfinite(score["fid"]) and np.isfinite(score["kid"])
-    assert ops.launch_counts()["convt_blur_act"] == 2 * 2
+    assert {k: ops.launch_counts()[k] for k in per_eval} == per_eval

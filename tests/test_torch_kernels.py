@@ -181,6 +181,92 @@ def test_ptxas_report_reads_registers_and_spills_per_kernel():
 
 
 # ---------------------------------------------------------------------------
+# K6 modconv_act (the plain StyledConv's conv and epilogue, for generation)
+# ---------------------------------------------------------------------------
+
+
+def _modconv_act_args(N, Cin, Cout, H, noise_batch=None, seed=0):
+    x = rand((N, Cin, H, H), seed)
+    s = rand((N, Cin), seed + 1) + 1.0
+    w = rand((Cout, Cin, 3, 3), seed + 2, 1.0 / (9 * Cin) ** 0.5)
+    demod = np.random.default_rng(seed + 3).uniform(0.5, 1.5, (N, Cout)).astype(np.float32)
+    noise = rand((N if noise_batch is None else noise_batch, 1, H, H), seed + 4)
+    nw = np.array([0.3], np.float32)
+    bias = rand((Cout,), seed + 5, 0.1)
+    return x, s, w, demod, noise, nw, bias
+
+
+# the 4x4, 8x8 and 16x16 maps take the kernel's three small tiles
+MODCONV_ACT_CASES = [(3, 16, 8, 4), (2, 8, 16, 8), (2, 8, 8, 16)]
+
+
+@pytest.mark.parametrize("N,Cin,Cout,H", MODCONV_ACT_CASES)
+@pytest.mark.parametrize("noise_batch", [None, 1], ids=["noise_B", "noise_1"])
+def test_modconv_act_ref_matches_the_unfused_chain_and_rick_tpu(N, Cin, Cout, H, noise_batch):
+    """K6's plain version is the port's unfused chain (x * s, the conv with
+    padding 1, K3's plain version), and the wrapper takes it on the CPU;
+    rick_tpu's chain (x * style, XLA's conv, the Pallas epilogue in
+    interpret mode) agrees to f32 reassociation."""
+    from jax import lax
+
+    x, s, w, demod, noise, nw, bias = args = _modconv_act_args(N, Cin, Cout, H, noise_batch, seed=N * 10 + H)
+    got = ops.modconv_act_ref(*map(t, args))
+    chain = ops.modconv_epilogue_ref(torch.nn.functional.conv2d(t(x) * t(s)[:, :, None, None], t(w), padding=1),
+                                     t(demod), t(noise), t(nw), t(bias))
+    assert torch.equal(got, chain)
+    assert torch.equal(ops.modconv_act(*map(t, args)), got)
+    out = lax.conv_general_dilated(j(x) * j(s)[:, :, None, None], j(w), (1, 1), ((1, 1), (1, 1)),
+                                   dimension_numbers=("NCHW", "OIHW", "NCHW"),
+                                   precision=lax.Precision.HIGHEST)
+    noise_b = np.broadcast_to(noise, (N, 1, H, H))
+    want = modconv_epilogue_pallas(out, j(demod), j(noise_b), jnp.float32(nw[0]), j(bias), 0.2, 2.0**0.5, True)
+    # sums of 9*Cin products in another order: 1e-5
+    close(got, want, rtol=1e-5, atol_frac=1e-5)
+
+
+def test_modconv_act_kernel_weights_are_blocked_k_major_hi_lo():
+    """The kernel's B operand: [co block][4 channels][tap][hi, lo][co][4],
+    hi = tf32(w), lo = tf32(w - hi), zero past Cout (padded to 128) and Cin
+    (padded to 8)."""
+    from rick_tpu_torch.ops.fused_upsample import tf32_round
+    from rick_tpu_torch.ops.modconv_act import _kernel_weights
+
+    cout, cin = 130, 12
+    w = t(rand((cout, cin, 3, 3), 3))
+    wt = _kernel_weights(w)
+    assert tuple(wt.shape) == (2, 4, 9, 2, 128, 4)
+    for co, ci, ky, kx in [(0, 0, 0, 0), (129, 11, 2, 2), (77, 5, 1, 2), (128, 8, 0, 1)]:
+        hi, lo = wt[co // 128, ci // 4, 3 * ky + kx, :, co % 128, ci % 4].reshape(2, 1)
+        v = w[co, ci, ky, kx].reshape(1)
+        assert torch.equal(hi, tf32_round(v)) and torch.equal(lo, tf32_round(v - hi))
+    assert not wt[1, :, :, :, 2:].any() and not wt[:, 3].any()
+
+
+@pytest.mark.parametrize("N,Cin,Cout,H", [(1, 512, 16, 8), (1, 256, 8, 16)])
+def test_3xtf32_modconv_act_chain_holds_1e5_where_tf32_does_not(N, Cin, Cout, H):
+    """The kernel's arithmetic in plain PyTorch: x * s rounded once in f32,
+    then each operand split as hi = tf32(v), lo = tf32(v - hi) and the conv
+    summed as hi*hi + hi*lo + lo*hi: within 1e-5 of max|ref| of the f32
+    chain at Cin up to 512, where hi*hi alone (plain TF32) misses 1e-4; why
+    the card holds K6 to 1e-4."""
+    from rick_tpu_torch.ops.fused_upsample import tf32_round
+
+    x, s, w, demod, noise, nw, bias = map(t, _modconv_act_args(N, Cin, Cout, H, seed=Cin + H))
+    ref = ops.modconv_act_ref(x, s, w, demod, noise, nw, bias)
+    xs = x * s[:, :, None, None]
+    x_hi, w_hi = tf32_round(xs), tf32_round(w)
+    pairs = [(x_hi, w_hi), (x_hi, tf32_round(w - w_hi)), (tf32_round(xs - x_hi), w_hi)]
+
+    def chain(pairs):
+        out = sum(torch.nn.functional.conv2d(a, b, padding=1) for a, b in pairs)
+        return ops.modconv_epilogue_ref(out, demod, noise, nw, bias)
+
+    close(chain(pairs), ref, rtol=0, atol_frac=1e-5)
+    if Cin == 512:
+        assert float((chain(pairs[:1]) - ref).abs().max()) > 1e-4 * float(ref.abs().max())
+
+
+# ---------------------------------------------------------------------------
 # K5 convt_blur_act_stage (K4 cut after each stage)
 # ---------------------------------------------------------------------------
 
@@ -287,8 +373,10 @@ def test_wrappers_take_plain_version_on_cpu_and_count_nothing():
     assert torch.equal(ops.convt_blur_act(*args), ops.convt_blur_act_ref(*args))
     g = t(rand((2, 4, 3, 3), 4))
     assert torch.equal(ops.fused_bias_act_bwd(g, x, b), ops.fused_bias_act_bwd_ref(g, x, b))
+    k6 = tuple(map(t, _modconv_act_args(2, 4, 4, 3)))
+    assert torch.equal(ops.modconv_act(*k6), ops.modconv_act_ref(*k6))
     assert ops.launch_counts() == {
-        "fused_bias_act": 0, "fused_bias_act_bwd": 0, "modconv_epilogue": 0, "convt_blur_act": 0,
+        "fused_bias_act": 0, "fused_bias_act_bwd": 0, "modconv_epilogue": 0, "convt_blur_act": 0, "modconv_act": 0,
     }
 
 
@@ -315,6 +403,9 @@ ROOFLINE_CASES = {
     "K3-bf16 (2,512,4,4)": (None, 6 * 2 * 512 * 16, 0.0),
     "K4 (4,256,128,128)->128": (4 * (4 * 256 * 128 * 128 + 128 * 256 * 9 + 4 * 128 + 4 * 256 * 256 + 128
                                      + 4 * 128 * 256 * 256), 20 * 4 * 128 * 256 * 256, None),
+    "K6 (100,128,256,256)": (4 * (100 * 128 * 256 * 256 + 100 * 128 + 128 * 128 * 9 + 100 * 128 + 100 * 256 * 256
+                                  + 1 + 128 + 100 * 128 * 256 * 256), 4 * 100 * 128 * 256 * 256,
+                             3 * 2 * 100 * 128 * 128 * 9 * 256 * 256),
 }
 
 
@@ -328,6 +419,8 @@ def _roofline_case(key):
         nbytes = roofline.modconv_epilogue_bytes(2, 512, 16, 2, 2)
     if tf32_ops is None:
         tf32_ops = roofline.TF32_PASSES * roofline.convt_ops(4, 256, 128, 128)
+    if key.startswith("K6"):
+        assert roofline.modconv_act_work(100, 128, 128, 256, 256, 100) == (nbytes, f32_ops, tf32_ops)
     return nbytes, f32_ops, tf32_ops
 
 
@@ -345,7 +438,7 @@ def test_roofline_bound_without_a_launch_floor_is_unchanged(key):
     assert bound(nbytes, f32_ops, tf32_ops, launch_ms=0.0) == bound(nbytes, f32_ops, tf32_ops)
     # a floor below the larger term changes nothing
     assert bound(nbytes, f32_ops, tf32_ops, launch_ms=0.5 * want[0]) == bound(nbytes, f32_ops, tf32_ops)
-    assert want[1] == ("operations" if key.startswith("K4") else "bytes")
+    assert want[1] == ("operations" if key.startswith(("K4", "K6")) else "bytes")
 
 
 @pytest.mark.parametrize("key", list(ROOFLINE_CASES))
@@ -376,11 +469,16 @@ def test_wrappers_raise_on_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         ops.convt_blur_act(x, torch.empty((4, 4, 3, 3), device="meta"), torch.empty((2, 4), device="meta"),
                            torch.empty((1, 1, 6, 6), device="meta"), b)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.modconv_act(x, torch.empty((2, 4), device="meta"), torch.empty((4, 4, 3, 3), device="meta"),
+                        torch.empty((2, 4), device="meta"), torch.empty((1, 1, 3, 3), device="meta"),
+                        torch.empty((1,), device="meta"), b)
 
 
 def test_build_command_names_every_source_and_the_hopper_target():
     names = [p.name for p in _build.sources()]
-    assert names == ["convt_blur_act.cu", "fused_bias_act.cu", "launch_floor.cu", "modconv_epilogue.cu"]
+    assert names == ["convt_blur_act.cu", "fused_bias_act.cu", "launch_floor.cu", "modconv_act.cu",
+                     "modconv_epilogue.cu"]
     flags = " ".join(_build.NVCC_FLAGS)
     assert "-gencode arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
     out = _build.build_path()
@@ -389,7 +487,7 @@ def test_build_command_names_every_source_and_the_hopper_target():
     assert set(_build.SIGNATURES) == {
         "rick_fused_bias_act", "rick_fused_bias_act_bf16", "rick_fused_bias_act_bwd", "rick_modconv_epilogue",
         "rick_modconv_epilogue_bf16", "rick_convt_blur_act_stage", "rick_empty_launch",
-        "rick_fused_bias_act_bf16_rows", "rick_modconv_epilogue_bf16_rows",
+        "rick_fused_bias_act_bf16_rows", "rick_modconv_epilogue_bf16_rows", "rick_modconv_act",
     }
 
 

@@ -182,3 +182,78 @@ def test_modules_draw_weights_from_the_given_generator_only():
     assert all(torch.equal(sa[k], sb[k]) for k in sa)
     assert not torch.equal(sa["input.input"], sc["input.input"])
     assert n(sa["convs.0.noise.weight"]).shape == (1,)
+
+
+# ---------------------------------------------------------------------------
+# fast=True: the stride-1 StyledConvs through K6 (`modconv_act`)
+# ---------------------------------------------------------------------------
+
+
+def _counted(fn):
+    """fn()'s result and the calls of each kernel wrapper it made."""
+    from rick_tpu_torch.utils import trace
+
+    with trace.recording():
+        out = fn()
+        calls = {k: c for k, (c, _) in trace.counters().items()}
+    return out, calls
+
+
+def _perturbed(module, seed: int):
+    """`module` with its all-zero params (biases, noise weights) made random."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in module.parameters():
+            if not p.any():
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.1)
+    return module.eval()
+
+
+@pytest.mark.parametrize("noise_batch", [2, 1], ids=["noise_B", "noise_1"])
+def test_styled_conv_fast_takes_modconv_act_and_matches_the_training_chain(noise_batch):
+    """Without upsample, given noise and an f32 input, fast=True takes K6's
+    wrapper (on the CPU its plain version) and fast=False K3's chain: the
+    same operations in the same order."""
+    m = _perturbed(tnn.StyledConv(8, 6, 3, 12, **RNG), 1)
+    x, s, noise = t(rand((2, 8, 8, 8), 2)), t(rand((2, 12), 3)), t(rand((noise_batch, 1, 8, 8), 4))
+    with torch.no_grad():
+        slow, slow_calls = _counted(lambda: m(x, s, noise))
+        fast, fast_calls = _counted(lambda: m(x, s, noise, fast=True))
+    assert fast_calls.get("ops.modconv_act") == 1 and "ops.modconv_epilogue" not in fast_calls
+    assert slow_calls.get("ops.modconv_epilogue") == 1 and "ops.modconv_act" not in slow_calls
+    assert torch.equal(fast, slow)
+
+
+@pytest.mark.parametrize("noise", ["buffers", "drawn"])
+def test_generator_fast_takes_modconv_act_at_every_stride1_styled_conv(noise):
+    """G with fast=True against fast=False: conv1 and the second conv of
+    every block through K6, the upsample convs through K4, no K3; images and
+    features within 1e-5 (K4's plain chain blurs in another order)."""
+    g = _perturbed(tnn.Generator(8, 16, 2, **RNG), 5)
+    z = torch.randn((2, 16), generator=torch.Generator().manual_seed(6))
+
+    def run(fast):
+        rng = torch.Generator().manual_seed(7) if noise == "drawn" else None
+        return g([z], rng=rng, return_feats=True, fast=fast)
+
+    with torch.no_grad():
+        (slow, slow_feats), slow_calls = _counted(lambda: run(False))
+        (fast, fast_feats), fast_calls = _counted(lambda: run(True))
+    blocks = len(g.to_rgbs)
+    assert fast_calls["ops.modconv_act"] == 1 + blocks and fast_calls["ops.convt_blur_act"] == blocks
+    assert "ops.modconv_epilogue" not in fast_calls
+    assert slow_calls["ops.modconv_epilogue"] == 1 + blocks and "ops.modconv_act" not in slow_calls
+    for got, want in zip([fast] + fast_feats, [slow] + slow_feats):
+        close(got, want, rtol=1e-5, atol_frac=1e-5)
+
+
+def test_bf16_conv1_keeps_modconv_epilogue_under_fast():
+    """With the trunk in bf16, G's conv1 computes in bf16 and keeps K3's bf16
+    route under fast=True; the later, f32 stride-1 convs take K6."""
+    g = _perturbed(tnn.Generator(8, 16, 2, **RNG), 8)
+    z = torch.randn((2, 16), generator=torch.Generator().manual_seed(9))
+    with torch.no_grad():
+        (img, _), calls = _counted(lambda: g([z], dtype=torch.bfloat16, fast=True))
+        want, _ = g([z], dtype=torch.bfloat16)
+    assert calls["ops.modconv_epilogue"] == 1 and calls["ops.modconv_act"] == len(g.to_rgbs)
+    close(img, want, rtol=1e-5, atol_frac=1e-5)

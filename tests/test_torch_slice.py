@@ -233,5 +233,5 @@ def test_cpu_slice_launches_no_kernel():
         d(img)
         g.mean_latent(8, torch.Generator().manual_seed(4))
     assert ops.launch_counts() == {
-        "fused_bias_act": 0, "fused_bias_act_bwd": 0, "modconv_epilogue": 0, "convt_blur_act": 0,
+        "fused_bias_act": 0, "fused_bias_act_bwd": 0, "modconv_epilogue": 0, "convt_blur_act": 0, "modconv_act": 0,
     }

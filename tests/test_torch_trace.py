@@ -232,7 +232,8 @@ def test_every_span_and_counter_is_in_perf_md():
     names = _literals()
     assert set(names) >= {"train.iteration", *PHASES, "fisher.round", "data.next_batch", "data.index_upload",
                           "eval.score", "eval.generate", "eval.inception", "ops.fused_bias_act",
-                          "ops.fused_bias_act_bwd", "ops.modconv_epilogue", "ops.convt_blur_act"}
+                          "ops.fused_bias_act_bwd", "ops.modconv_epilogue", "ops.convt_blur_act",
+                          "ops.modconv_act"}
     perf = (REPO / "PERF.md").read_text()
     missing = {n: where for n, where in names.items() if f"`{n}`" not in perf}
     assert not missing, f"not named in PERF.md's table of spans and counters: {missing}"
