@@ -23,38 +23,33 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from benchmark import harness, inputs
+from benchmark import harness, inputs, spec
 from benchmark import trace as btrace
 from benchmark.harness import Window
 from benchmark.reference import fid as ref_fid
-from benchmark.reference import stylegan2 as ref_models
 from benchmark.reference.inception import InceptionPool3
 
 
 def setup(ctx):
     from rick_tpu_torch.metrics import Evaluator
-    from rick_tpu_torch.nn import Generator, GeneratorConfig
     from rick_tpu_torch.ops import _build
 
     cfg, t, dev, seed = ctx.cfg, ctx.traffic, ctx.device, ctx.seed
     harness.tf32(False)  # as the train CLI
     if dev == "cuda":
         _build.lib()
-    gw, _ = inputs.gan_weights(cfg, seed, dev)
-    bk = tuple(cfg["blur_kernel"])
-    gcfg = GeneratorConfig(cfg["size"], cfg["style_dim"], cfg["n_mlp"], cfg["channel_multiplier"], bk, cfg["lr_mlp"])
+    gw, _ = inputs.gan_weights(cfg, seed, dev, ctx.root)
     rng = torch.Generator(device=dev).manual_seed(0)  # the constructor's draws are overwritten below
-    g_ema = Generator(gcfg.size, gcfg.style_dim, gcfg.n_mlp, gcfg.channel_multiplier, bk, gcfg.lr_mlp, rng=rng,
-                      device=dev).eval()
-    g_ema.load_state_dict(gw)
+    g_ema, gcfg = spec.program_models(cfg, ctx.root).generator(cfg, dev, rng)
+    g_ema.eval().load_state_dict(gw)
     reals = inputs.images(t["real_samples"], cfg["size"], seed, inputs.IMAGES, dev)
     ev = Evaluator(gcfg, fid_real_samples=reals, inception_nsamples=t["inception_nsamples"],
-                   batch_size=t["real_batch"], n_sample_store=t["n_sample_store"],
+                   batch_size=t["real_batch"], n_sample_store=t["n_sample_store"], latent=cfg["style_dim"],
                    inception_params=inputs.inception_weights(seed, dev), gen_batch=t["gen_batch"], seed=seed,
                    device=dev, **{f"inception_{k}": v for k, v in _cut(t).items()})
     # warm-up: one chunk at the evaluation's batch, one Fréchet distance
     warm = torch.Generator(device=dev).manual_seed(inputs.stream_seed(seed, inputs.PICK))
-    z = torch.randn((ev.gen_batch, cfg["style_dim"]), generator=warm, device=dev)
+    z = torch.randn((ev.gen_batch, ev.latent), generator=warm, device=dev)
     acts = ev.activations(g_ema, z, noise=g_ema.layer_noise(ev.gen_batch, warm, None)).double()
     mu = acts.mean(dim=0)
     ev.fid(mu.float(), ((acts - mu).T @ (acts - mu) / (acts.shape[0] - 1)).float())
@@ -103,8 +98,8 @@ def reference(ctx, obs, tf32: bool = False) -> dict:
     cfg, t, dev, seed = ctx.cfg, ctx.traffic, ctx.device, ctx.seed
     harness.tf32(tf32)
     try:
-        gw, _ = inputs.gan_weights(cfg, seed, dev)
-        g, _ = ref_models.models(cfg, dev)
+        gw, _ = inputs.gan_weights(cfg, seed, dev, ctx.root)
+        g, _ = spec.reference_models(cfg, ctx.root).models(cfg, dev)
         g.load_state_dict(gw)
         inception = InceptionPool3(inputs.inception_weights(seed, dev), **_cut(t))
         fake = ref_fid.fake_acts(g, inception, seed=seed, call=obs["call"], n=t["inception_nsamples"],

@@ -17,13 +17,13 @@ from __future__ import annotations
 
 import json
 import sys
+from pathlib import Path
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
 from benchmark import spec
-from benchmark.reference import stylegan2
 from benchmark.reference import train as ref_train
 from benchmark.reference.inception import InceptionPool3, leaves
 
@@ -53,11 +53,15 @@ def count(fn) -> int:
     return int(c.total)
 
 
+def _noise(g, batch: int) -> list:
+    """The per-layer noise `reference/train.py::layer_noise` draws, on `meta`."""
+    return [torch.empty(batch, 1, g.noise_res(j), g.noise_res(j), device=META) for j in range(g.num_layers)]
+
+
 def _draws(g, batch: int, path: bool = False) -> dict:
     with torch.device(META):
         draws = dict(z1=torch.empty(batch, g.style_dim), z2=torch.empty(batch, g.style_dim),
-                     inject=torch.full((), g.n_latent // 2),
-                     noise=[torch.empty(batch, 1, g.noise_res(j), g.noise_res(j)) for j in range(g.num_layers)])
+                     inject=torch.full((), g.n_latent // 2), noise=_noise(g, batch))
         if path:
             draws["noise_img"] = torch.empty(batch, 3, g.size, g.size)
     return draws
@@ -67,9 +71,9 @@ def _grads(loss, params) -> None:
     torch.autograd.grad(loss, list(params), allow_unused=True)
 
 
-def train_flops(cfg: dict, t: dict) -> dict:
+def train_flops(cfg: dict, t: dict, root: Path = spec.ROOT) -> dict:
     """FLOPs of each phase kind (d, r1, g, path) and of one Fisher round."""
-    g, d = stylegan2.models(cfg, META)
+    g, d = spec.reference_models(cfg, root).models(cfg, META)
     gp = [p for n, p in g.named_parameters() if ref_train.g_trainable(n)]
     dp = [p for n, p in d.named_parameters() if ref_train.d_trainable(n)]
     b, size = t["batch"], cfg["size"]
@@ -79,8 +83,7 @@ def train_flops(cfg: dict, t: dict) -> dict:
 
     def fisher():
         for _ in range(t["num_fisher_img"]):
-            gl, dl = ref_train.fisher_losses(g, d, torch.empty(1, g.style_dim, device=META), real[:1],
-                                             _draws(g, 1)["noise"])
+            gl, dl = ref_train.fisher_losses(g, d, torch.empty(1, g.style_dim, device=META), real[:1], _noise(g, 1))
             _grads(gl, g.parameters())
             _grads(dl, d.parameters())
 
@@ -94,19 +97,19 @@ def train_flops(cfg: dict, t: dict) -> dict:
     }
 
 
-def eval_flops(cfg: dict, t: dict) -> dict:
+def eval_flops(cfg: dict, t: dict, root: Path = spec.ROOT) -> dict:
     """FLOPs of one evaluation: generation and Inception of every sample,
     and the covariance of the activations."""
-    g, _ = stylegan2.models(cfg, META)
+    g, _ = spec.reference_models(cfg, root).models(cfg, META)
     with torch.device(META):
         inception = InceptionPool3({n: torch.empty(shape) for n, shape, _, _ in leaves()})
         acts = torch.empty(t["inception_nsamples"], 2048)
     gb = t["gen_batch"]
-    draws = _draws(g, gb)
+    z, noise = torch.empty(gb, g.style_dim, device=META), _noise(g, gb)
 
     @torch.no_grad()
     def chunk():
-        inception(g(draws["z1"], draws["noise"]))
+        inception(g(z, noise))
 
     return {"evaluation": count(chunk) * (t["inception_nsamples"] // gb) + count(lambda: acts.T @ acts)}
 

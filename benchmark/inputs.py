@@ -6,13 +6,14 @@ fetched, so the weights are drawn (the configuration files say so under
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Dict, Iterable, Tuple
 
 import numpy as np
 import torch
 
+from benchmark import spec
 from benchmark.reference import inception as ref_inception
-from benchmark.reference import stylegan2
 
 # separate streams of one seed
 G_WEIGHTS, D_WEIGHTS, INCEPTION_WEIGHTS, IMAGES, FISHER_LATENTS, PICK = range(6)
@@ -37,15 +38,17 @@ def draw(leaves: Iterable[Tuple[str, tuple, float, float]], seed: int, stream: i
     return out
 
 
-def model_leaves(module: torch.nn.Module, lr_mlp: float):
-    return [(n, tuple(t.shape), *stylegan2.init_rule(n, lr_mlp)) for n, t in module.state_dict().items()]
+def model_leaves(module: torch.nn.Module, cfg: dict, init_rule):
+    """(name, shape, scale, shift) of each leaf, by the architecture's `init_rule`."""
+    return [(n, tuple(t.shape), *init_rule(n, cfg)) for n, t in module.state_dict().items()]
 
 
-def gan_weights(cfg: dict, seed: int, device):
-    """(G's, D's) state dicts of the configuration's sizes."""
-    g, d = stylegan2.models(cfg, device="meta")
-    return (draw(model_leaves(g, cfg["lr_mlp"]), seed, G_WEIGHTS, device),
-            draw(model_leaves(d, cfg["lr_mlp"]), seed, D_WEIGHTS, device))
+def gan_weights(cfg: dict, seed: int, device, root: Path = spec.ROOT):
+    """(G's, D's) state dicts of the configuration's architecture and sizes."""
+    arch = spec.reference_models(cfg, root)
+    g, d = arch.models(cfg, device="meta")
+    return (draw(model_leaves(g, cfg, arch.init_rule), seed, G_WEIGHTS, device),
+            draw(model_leaves(d, cfg, arch.init_rule), seed, D_WEIGHTS, device))
 
 
 def inception_weights(seed: int, device) -> Dict[str, torch.Tensor]:

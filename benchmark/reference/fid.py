@@ -15,13 +15,13 @@ from typing import Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from benchmark.reference.inception import InceptionPool3
-from benchmark.reference.stylegan2 import Generator
 from benchmark.reference.train import layer_noise
 
 
-def block_draws(g: Generator, seed: int, call: int, b: int, block: int, device):
+def block_draws(g: nn.Module, seed: int, call: int, b: int, block: int, device):
     s = np.random.SeedSequence([seed, call, 0, b]).generate_state(1, np.uint64)[0]
     gen = torch.Generator(device=device).manual_seed(int(s))
     z = torch.randn((block, g.style_dim), generator=gen, device=device)
@@ -50,7 +50,7 @@ def frechet64(mu1, s1, mu2, s2) -> float:
 
 
 @torch.no_grad()
-def fake_acts(g: Generator, inception: InceptionPool3, *, seed: int, call: int, n: int, block: int, device):
+def fake_acts(g: nn.Module, inception: InceptionPool3, *, seed: int, call: int, n: int, block: int, device):
     """pool3 activations (n, 2048) of evaluation `call`'s draws."""
     out = []
     for b in range(n // block):

@@ -390,7 +390,7 @@ def models(cfg: dict, device="cpu"):
     return g, d
 
 
-def init_rule(name: str, lr_mlp: float) -> tuple:
+def init_rule(name: str, cfg: dict) -> tuple:
     """(scale, shift) of a leaf's draw, randn * scale + shift: rosinality's
     init (randn weights, mapping weights / lr_mlp, modulation bias 1), with
     small random biases and noise weights in place of its zeros, so that
@@ -400,7 +400,7 @@ def init_rule(name: str, lr_mlp: float) -> tuple:
     if name.endswith("modulation.bias"):
         return 0.1, 1.0
     if name.startswith("style.") and name.endswith(".weight"):
-        return 1.0 / lr_mlp, 0.0
+        return 1.0 / cfg["lr_mlp"], 0.0
     if name.endswith("bias") or name.endswith("noise.weight"):
         return 0.1, 0.0
     return 1.0, 0.0

@@ -27,8 +27,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 import torch.nn.functional as F
-
-from benchmark.reference.stylegan2 import Discriminator, Generator
+from torch import nn
 
 PHASES_TAG, FISHER_TAG = 0, 3
 
@@ -39,12 +38,12 @@ def iteration_generator(device, seed: int, i: int, tag: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(s))
 
 
-def layer_noise(g: Generator, batch: int, gen: torch.Generator, device) -> List[torch.Tensor]:
+def layer_noise(g: nn.Module, batch: int, gen: torch.Generator, device) -> List[torch.Tensor]:
     return [torch.randn((batch, 1, g.noise_res(j), g.noise_res(j)), generator=gen, device=device)
             for j in range(g.num_layers)]
 
 
-def sample_draws(gen: torch.Generator, g: Generator, mixing: float, batch: int, latent: int, device,
+def sample_draws(gen: torch.Generator, g: nn.Module, mixing: float, batch: int, latent: int, device,
                  path: bool = False) -> dict:
     """Two latents, the style-mixing index (n_latent: no mixing), the layer
     noise and, for the path phase, the image-space noise / sqrt(H * W)."""
@@ -118,7 +117,7 @@ def maskable(name: str) -> bool:
                                      "skip.1.weight"))
 
 
-def mask_keys(g: Generator, d: Discriminator):
+def mask_keys(g: nn.Module, d: nn.Module):
     """{name: filter count} of G's and D's maskable leaves."""
     gk, dk = {}, {}
     for i, blk in enumerate(g.convs):
@@ -187,7 +186,7 @@ class Trainer:
     """The recipe's training state and loop over models holding the
     benchmark's weights.  `t`: the traffic file's settings."""
 
-    def __init__(self, g: Generator, d: Discriminator, t: dict, seed: int, device):
+    def __init__(self, g: nn.Module, d: nn.Module, t: dict, seed: int, device):
         self.t, self.seed, self.device = t, seed, device
         self.g, self.d = g, d
         self.g_ema, self.d_ema = copy.deepcopy(g), copy.deepcopy(d)

@@ -27,6 +27,7 @@ KERNELS = {
     "rick_fused_bias_act_bwd": ("K2", ("fba_bwd_rows", "fba_bwd_lastdim")),
     "rick_modconv_epilogue": ("K3", ("epi_rows",)),
     "rick_convt_blur_act_stage": ("K4", ("convt_blur_act_kernel",)),
+    "rick_modconv_act": ("K6", ("modconv_act_kernel",)),
 }
 
 
@@ -74,6 +75,17 @@ def convt_blur_act_work(n: int, cin: int, cout: int, h: int, w: int, noise_batch
     return nbytes, 2 * 8 * y + 4 * y, TF32_PASSES * convt_ops(n, cin, cout, h, w)
 
 
+def modconv_act_work(n: int, cin: int, cout: int, h: int, w: int, noise_batch: int):
+    """K6's (bytes, f32 operations, TF32 operations): x, s, the weights,
+    demod, the noise maps, the noise weight and the bias read once, the
+    output written once; the epilogue (4 operations per output) on the CUDA
+    cores; the 3x3 conv (9 taps of Cin per output pixel and channel, as
+    `convt_ops` counts per input pixel) as 3xTF32."""
+    y = n * cout * h * w
+    nbytes = 4 * (n * cin * h * w + n * cin + cout * cin * 9 + n * cout + noise_batch * h * w + 1 + cout + y)
+    return nbytes, 4 * y, TF32_PASSES * convt_ops(n, cin, cout, h, w)
+
+
 def launch_bound(fn: str, args: tuple) -> float:
     """The bound in ms of one launch of the port's C entry point `fn` with
     the arguments `args` (see the signatures in the port's `ops/_build.py`)."""
@@ -89,4 +101,7 @@ def launch_bound(fn: str, args: tuple) -> float:
     if fn == "rick_convt_blur_act_stage":  # xs, wt, demod, noise, bias, y, N, Cin, Cout, H, W, nb, ...
         n, cin, cout, h, w, batched = args[6:12]
         return bound(*convt_blur_act_work(n, cin, cout, h, w, n if batched else 1))[0]
+    if fn == "rick_modconv_act":  # x, wt, s, demod, noise, nw, bias, y, N, Cin, Cout, H, W, noise_batched, ...
+        n, cin, cout, h, w, batched = args[8:14]
+        return bound(*modconv_act_work(n, cin, cout, h, w, n if batched else 1))[0]
     raise KeyError(fn)

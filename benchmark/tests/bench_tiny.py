@@ -17,8 +17,8 @@ TRAIN, FID = "tiny-train", "tiny-fid"
 def make(dst: Path) -> dict:
     """Copy the benchmark's data under `dst` with the tiny cells added;
     returns the BENCHMARK.json that names them."""
-    for sub in ("configs", "traffic", "flops", "limits", "metrics"):
-        shutil.copytree(spec.ROOT / sub, dst / sub, dirs_exist_ok=True)
+    for sub in ("configs", "traffic", "flops", "limits", "metrics", "reference", "programs"):
+        shutil.copytree(spec.ROOT / sub, dst / sub, dirs_exist_ok=True, ignore=shutil.ignore_patterns("__pycache__"))
     cfg = spec.config("stylegan2-ffhq256")
     cfg.update(name="tiny", size=16, d_size=16)
     (dst / "configs" / "tiny.json").write_text(json.dumps(cfg))

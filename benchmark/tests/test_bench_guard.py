@@ -41,6 +41,8 @@ def test_reference_imports_nothing_of_the_program(path):
 
 def test_reference_loads_nothing_of_the_program():
     code = ("import sys, benchmark.reference.train, benchmark.reference.fid, benchmark.flops, benchmark.inputs; "
+            "from benchmark import spec; [spec.reference_models(spec.config(c['name'])) for c in "
+            "spec.load_benchmark()['configs']]; "
             "print(sorted({m.split('.')[0] for m in sys.modules} & {'rick_tpu_torch', 'rick_tpu', 'jax'}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=spec.REPO, capture_output=True, text=True, check=True)
     assert out.stdout.strip() == "[]"

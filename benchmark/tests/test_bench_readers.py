@@ -48,6 +48,23 @@ def test_device_trace_readers():
         100 * roofline.launch_bound("rick_convt_blur_act_stage", args_k4) / 4.0)
 
 
+def test_eval_roofline_reads_k4_and_k6():
+    k4 = ("void convt_blur_act_kernel<3, 32>(...)", 0, 4 * MS)
+    k6 = ("void (anonymous namespace)::modconv_act_kernel<(anonymous namespace)::Geom<8, 16> >(...)", 5 * MS, 8 * MS)
+    k3 = ("void (anonymous namespace)::epi_rows<float>(...)", 9 * MS, 10 * MS)
+    cap = Capture(window_s=0.01, t0_ns=0, t1_ns=10 * MS, device=[k4, k6, k3], kernels=[k4, k6, k3])
+    args_k4 = (0, 0, 0, 0, 0, 0, 4, 256, 128, 16, 16, 1, 0.0, 0.0, 0.0, 0.0, 1, 0.2, 1.41, 3, 0)
+    args_k6 = (0,) * 8 + (100, 512, 512, 64, 64, 1, 0.2, 1.41, 0)
+    args_k3 = (0, 0, 0, 0, 0, 0, 4, 128, 256 * 256, 1, 0.2, 1.41, 0)
+    k4_k6 = [("rick_convt_blur_act_stage", args_k4), ("rick_modconv_act", args_k6)]
+    rec = _record(cap, {"evaluation": 1}, k4_k6 + [("rick_modconv_epilogue", args_k3)])
+    assert _read("kernel_roofline.eval", rec) == pytest.approx(
+        100 * (roofline.launch_bound(*k4_k6[0]) + roofline.launch_bound(*k4_k6[1])) / 7.0)
+    # a K6 launch whose record the trace lost: no share
+    rec = _record(cap, {"evaluation": 1}, k4_k6 + [k4_k6[1]])
+    assert _read("kernel_roofline.eval", rec) is None
+
+
 def test_nothing_to_read_gives_nothing():
     empty = _record()
     for m in spec.load_benchmark()["per_layer"]:

@@ -1,5 +1,6 @@
 """The copied roofline arithmetic against the port's `tools/roofline.py` and
-against the bounds PERF.md's kernel table gives at K1-K4's main-path shapes."""
+against the bounds PERF.md's kernel table gives at K1-K4's and K6's main-path
+shapes."""
 
 import pytest
 
@@ -17,10 +18,16 @@ CASES = [
     # K4 at (4,256,128,128) -> 128: xs, wt, demod, noise, bias, y, N, Cin, Cout, H, W, batched, ...
     ("rick_convt_blur_act_stage", (0, 0, 0, 0, 0, 0, 4, 256, 128, 128, 128, 1) + (0.0,) * 4 + (1, 0.2, 1.41, 3, 0),
      0.234),
+    # K6 at (100,128,256,256) and (100,512,64,64), noise batch 100: x, wt, s, demod, noise, nw, bias, y, N, Cin,
+    # Cout, H, W, batched, slope, gain, stream
+    pytest.param("rick_modconv_act", (0,) * 8 + (100, 128, 128, 256, 256, 1, 0.2, 1.41, 0), 11.714,
+                 id="rick_modconv_act-128x256"),
+    pytest.param("rick_modconv_act", (0,) * 8 + (100, 512, 512, 64, 64, 1, 0.2, 1.41, 0), 11.714,
+                 id="rick_modconv_act-512x64"),
 ]
 
 
-@pytest.mark.parametrize("fn,args,perf_ms", CASES, ids=[c[0] for c in CASES])
+@pytest.mark.parametrize("fn,args,perf_ms", CASES, ids=[c[0] if isinstance(c, tuple) else None for c in CASES])
 def test_launch_bound_matches_the_kernel_table(fn, args, perf_ms):
     assert roofline.launch_bound(fn, args) == pytest.approx(perf_ms, abs=5e-4)
 
@@ -35,4 +42,6 @@ def test_byte_and_operation_counts_are_the_port_arithmetic():
     assert roofline.convt_ops(4, 256, 128, 128) == port_roofline.convt_ops(4, 256, 128, 128)
     assert roofline.fused_bias_act_bytes(1000, 10) == port_roofline.fused_bias_act_bytes(1000, 10)
     assert roofline.modconv_epilogue_bytes(2, 512, 16, 1) == port_roofline.modconv_epilogue_bytes(2, 512, 16, 1)
+    for shape in ((100, 128, 128, 256, 256, 100), (100, 512, 512, 64, 64, 1), (3, 512, 256, 5, 7, 3)):
+        assert roofline.modconv_act_work(*shape) == port_roofline.modconv_act_work(*shape)
     assert roofline.PEAK_TF32_FLOP_PER_S == port_roofline.PEAK_TF32_FLOP_PER_S == 495e12

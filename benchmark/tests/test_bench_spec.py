@@ -1,14 +1,17 @@
 """BENCHMARK.json against the benchmark's contract, the discovery of every
-part it names, and a later cell, traffic mix and metric taken as new files
-alone."""
+part it names, and a later cell, traffic mix, metric and architecture taken
+as new files alone."""
 
+import hashlib
 import json
 import re
 import shutil
 
 import pytest
+import torch
 
-from benchmark import harness, spec
+import bench_tiny
+from benchmark import flops, harness, inputs, spec
 from benchmark.trace import Capture
 
 BENCH = spec.load_benchmark()
@@ -98,10 +101,70 @@ def test_a_later_cell_and_metric_are_files_alone(tmp_path):
     assert {p: p.read_bytes() for p in before} == before
 
 
+def _files(root):
+    return {p: p.read_bytes() for p in root.rglob("*") if p.is_file() and "__pycache__" not in p.parts}
+
+
+def test_a_later_architecture_is_files_alone(tmp_path):
+    """A configuration naming a new architecture, with that architecture's
+    reference and program files (here thin re-exports of StyleGAN2's), runs
+    a CPU FID cell to `correct`; no existing file is edited."""
+    torch.set_num_threads(4)
+    committed = _files(spec.ROOT)
+    root = tmp_path / "bench"
+    bench = bench_tiny.make(root)
+    before = _files(root)
+    cfg = dict(spec.config("tiny", root), name="throwaway", arch="throwaway")
+    (root / "configs" / "throwaway.json").write_text(json.dumps(cfg))
+    (root / "reference" / "throwaway.py").write_text("from benchmark.reference.stylegan2 import init_rule, models\n")
+    (root / "programs" / "throwaway.py").write_text(
+        "from benchmark.programs.stylegan2 import discriminator, generator\n")
+    (root / "flops" / f"throwaway.{bench_tiny.FID}.json").write_text(json.dumps({"evaluation": 1}))
+    shutil.copy(root / "limits" / f"{bench_tiny.FID}.json", root / "limits" / "throwaway.fid.json")
+    bench["configs"].append({"name": "throwaway", "source": "https://example.org", "file": "x", "reduced": [],
+                             "why": "x"})
+    bench["workloads"].append({"name": "throwaway.fid", "config": "throwaway", "traffic": bench_tiny.FID, "chips": 1,
+                               "why": "x"})
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if "fid5k_s" in (m["name"], m.get("moves")) and "workloads" in m:
+            m["workloads"].append("throwaway.fid")
+
+    ctx = harness.make_ctx("throwaway.fid", 2**31 + 7, False, "cpu", bench, root)
+    assert spec.arch(ctx.cfg) == "throwaway" and spec.reference_models(ctx.cfg, root).__name__.endswith("throwaway")
+    tiny = spec.config("tiny", root)
+    for got, want in zip(inputs.gan_weights(ctx.cfg, 5, "cpu", root), inputs.gan_weights(tiny, 5, "cpu", root)):
+        assert list(got) == list(want) and all(torch.equal(got[k], want[k]) for k in want)
+    counted = flops.eval_flops(ctx.cfg, ctx.traffic, root)
+    assert counted == flops.eval_flops(tiny, ctx.traffic, root) and counted["evaluation"] > 0
+    res = harness.run(ctx, 0.5)
+    assert res["correct"] is True and res["attempted"] > 0, res["checks"]
+    assert {p: p.read_bytes() for p in before} == before
+    assert _files(spec.ROOT) == committed
+
+
+# sha256 of gan_weights(the tiny config, seed 2**31 + 12345, "cpu"): each leaf's name and float32 bytes in
+# state-dict order, G's then D's; taken before the architecture files existed
+TINY_WEIGHTS_SHA256 = "6b7444ee8a6b2eb3b4016f39242ddf629af974e12a6752280652c42a68512c14"
+
+
+def test_stylegan2_weights_are_those_of_before(tmp_path):
+    bench_tiny.make(tmp_path)
+    h = hashlib.sha256()
+    for weights in inputs.gan_weights(spec.config("tiny", tmp_path), 2**31 + 12345, "cpu", tmp_path):
+        for name, t in weights.items():
+            h.update(name.encode())
+            h.update(t.contiguous().numpy().tobytes())
+    assert h.hexdigest() == TINY_WEIGHTS_SHA256
+
+
 def test_missing_parts_raise():
     with pytest.raises(FileNotFoundError):
         spec.config("no-such-config")
     with pytest.raises(FileNotFoundError):
         spec.metric_reader("no_such_metric.train")
+    with pytest.raises(FileNotFoundError):
+        spec.reference_models({"arch": "no_such_arch"})
+    with pytest.raises(FileNotFoundError):
+        spec.program_models({"arch": "no_such_arch"})
     with pytest.raises(KeyError):
         spec.workload(BENCH, "no-such-cell")

@@ -9,12 +9,12 @@ few-shot set, written as the port's record store, through the CLI's loader
 round that falls among them: at 400 the round comes first and the first
 iteration holds every phase kind (D, R1, G, path).  What those steps
 produced is kept (`first_steps`): the round's masks, the first iteration's D
-loss, the gradient of each leaf's last step in the first iteration (Adam's
-first moment, with beta1 0; D's whole, G's as norms per filter), and each
-leaf's change after `change_after` iterations.  The window continues the
-same state in blocks of `block` iterations, each holding the Fisher round
-and the metrics fetch that fall at the recipe's cadence, until `--seconds`
-have passed.
+loss, D's whole gradient at its first step and the gradient of each leaf's
+last step in the first iteration as norms per filter (Adam's first moment,
+with beta1 0), and each leaf's change after `change_after` iterations.  The
+window continues the same state in blocks of `block` iterations, each
+holding the Fisher round and the metrics fetch that fall at the recipe's
+cadence, until `--seconds` have passed.
 
 The reference follows the same steps from the same weights, draws and
 batches (`benchmark/reference/train.py`) through the same `first_steps`.
@@ -32,16 +32,15 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from benchmark import harness, inputs
+from benchmark import harness, inputs, spec
 from benchmark import trace as btrace
 from benchmark.harness import Window
-from benchmark.reference import stylegan2 as ref_models
 from benchmark.reference import train as ref_train
 
 
 def _seed_inputs(ctx):
     cfg, t, dev = ctx.cfg, ctx.traffic, ctx.device
-    gw, dw = inputs.gan_weights(cfg, ctx.seed, dev)
+    gw, dw = inputs.gan_weights(cfg, ctx.seed, dev, ctx.root)
     imgs = inputs.images(t["n_sample_train"], cfg["size"], ctx.seed, inputs.IMAGES, dev)
     fz = torch.randn((t["num_fisher_img"], cfg["style_dim"]), generator=inputs.generator(ctx.seed, inputs.FISHER_LATENTS,
                      dev), device=dev)
@@ -89,7 +88,6 @@ def _staged_loader(imgs: torch.Tensor, t: dict, seed: int, device):
 
 def setup(ctx):
     from rick_tpu_torch.cli.train import FISHER_TAG, PHASES_TAG, iteration_generator
-    from rick_tpu_torch.nn import Discriminator, DiscriminatorConfig, Generator, GeneratorConfig
     from rick_tpu_torch.ops import _build
     from rick_tpu_torch.train import TrainConfig, fisher_round, init_train_state, merge_prune, run_iteration
 
@@ -99,17 +97,15 @@ def setup(ctx):
         _build.lib()
     gw, dw, imgs, fisher_z = _seed_inputs(ctx)
     loader = _staged_loader(imgs, t, seed, dev)
-    bk = tuple(cfg["blur_kernel"])
-    gcfg = GeneratorConfig(cfg["size"], cfg["style_dim"], cfg["n_mlp"], cfg["channel_multiplier"], bk, cfg["lr_mlp"])
-    dcfg = DiscriminatorConfig(cfg["d_size"], cfg["d_channel_multiplier"], bk, cfg["stddev_group"])
     tcfg = TrainConfig(
         batch=t["batch"], r1=t["r1"], path_regularize=t["path_regularize"], path_batch_shrink=t["path_batch_shrink"],
         d_reg_every=t["d_reg_every"], g_reg_every=t["g_reg_every"], mixing=t["mixing"], lr=t["lr"], augment=False,
         warmup_iter=t["warmup_iter"], fisher_freq=t["fisher_freq"], num_fisher_img=t["num_fisher_img"],
         fisher_quantile=t["fisher_quantile"], prune_quantile=t["prune_quantile"], ema_kimg=t["ema_kimg"])
     rng = torch.Generator(device=dev).manual_seed(0)  # the constructors' draws are overwritten below
-    g = Generator(gcfg.size, gcfg.style_dim, gcfg.n_mlp, gcfg.channel_multiplier, bk, gcfg.lr_mlp, rng=rng, device=dev)
-    d = Discriminator(dcfg.size, dcfg.channel_multiplier, bk, dcfg.stddev_group, rng=rng, device=dev)
+    models = spec.program_models(cfg, ctx.root)
+    g, gcfg = models.generator(cfg, dev, rng)
+    d, dcfg = models.discriminator(cfg, dev, rng)
     g.load_state_dict(gw)
     d.load_state_dict(dw)
     state = init_train_state(gcfg, dcfg, tcfg, rng=rng, device=dev, g=g, d=d)
@@ -138,36 +134,45 @@ def setup(ctx):
                 for side, module, opt in (("g", state.g, state.g_opt), ("d", state.d, state.d_opt))}
 
     obs = first_steps(t, fisher, lambda i: step(next(loader), i), masks, grads,
-                      (("g", state.g, gw), ("d", state.d, dw), ("g_ema", state.g_ema, gw), ("d_ema", state.d_ema, dw)))
+                      (("g", state.g, gw), ("d", state.d, dw), ("g_ema", state.g_ema, gw), ("d_ema", state.d_ema, dw)),
+                      state.d_opt)
     del gw, dw
     return SimpleNamespace(state=state, loader=loader, fisher=fisher, step=step,
                            next_i=t["start_iter"] + t["warmup_steps"], obs=obs, dev=dev)
 
 
-def first_steps(t: dict, fisher, step, masks, grads, modules) -> dict:
+def first_steps(t: dict, fisher, step, masks, grads, modules, d_opt: torch.optim.Optimizer) -> dict:
     """Drive the schedule's first `warmup_steps` iterations from `start_iter`
     and keep what they produced: the first Fisher round's masks, the first
-    iteration's D loss and each leaf's gradient at its last step in it (D's
-    whole, G's as norms per filter), and each leaf's change after
-    `change_after` iterations.  `fisher(i)` runs a round, `step(i)` an
-    iteration; `masks()` and `grads()` read the state after them; `modules`
-    is (side, module, the weights it started from) for G, D and their EMAs.
+    iteration's D loss, D's whole gradient at its first step (the D phase's,
+    which no update precedes, read by a hook on `d_opt`), each leaf's
+    gradient at its last step in the first iteration as norms per filter,
+    and each leaf's change after `change_after` iterations.  `fisher(i)` runs
+    a round, `step(i)` an iteration; `masks()` and `grads()` read the state
+    after them; `modules` is (side, module, the weights it started from) for
+    G, D and their EMAs; `d_opt` is D's optimizer.
     The program's set-up and the reference both drive their steps here."""
     obs: dict = {}
+
+    def keep_d_grads(*_) -> None:  # after D's first Adam step, the D phase's
+        if "d_grads" not in obs:
+            obs["d_grads"] = {f"d.{name}": v.detach().to("cpu", torch.float32, copy=True)
+                              for name, v in grads()["d"].items()}
+
     for n in range(t["warmup_steps"]):
         i = t["start_iter"] + n
         if fisher_due(t, i):
             fisher(i)
             obs.setdefault("masks", {f"{side}.{k}": v.detach().to("cpu", copy=True) for side, m in masks().items()
                                      for k, v in m.items()})
+        if n == 0:
+            hook = d_opt.register_step_post_hook(keep_d_grads)
         metrics = step(i)
         if n == 0:
+            hook.remove()
             obs["d_loss"] = float(metrics["d"])
-            got = grads()
-            obs["grads"] = {f"{side}.{name}": per_filter(name, v) for side, leaves in got.items()
+            obs["grads"] = {f"{side}.{name}": per_filter(name, v) for side, leaves in grads().items()
                             for name, v in leaves.items()}
-            obs["d_grads"] = {f"d.{name}": v.detach().to("cpu", torch.float32, copy=True)
-                              for name, v in got["d"].items()}
         if n + 1 == t["change_after"]:
             obs["changes"] = {f"{side}.{name}": per_filter(name, p.detach() - w0[name])
                               for side, module, w0 in modules for name, p in module.named_parameters()}
@@ -258,7 +263,7 @@ def reference(ctx, obs=None, tf32: bool = False) -> dict:
     harness.tf32(tf32)
     try:
         gw, dw, imgs, fisher_z = _seed_inputs(ctx)
-        g, d = ref_models.models(cfg, dev)
+        g, d = spec.reference_models(cfg, ctx.root).models(cfg, dev)
         g.load_state_dict(gw)
         d.load_state_dict(dw)
         tr = ref_train.Trainer(g, d, t, seed, dev)
@@ -272,7 +277,7 @@ def reference(ctx, obs=None, tf32: bool = False) -> dict:
             t, fisher, lambda i: tr.iteration(next(batches), i),
             lambda: {"g_freeze": tr.g_freeze, "g_prune": tr.g_prune, "d_freeze": tr.d_freeze, "d_prune": tr.d_prune},
             lambda: {"g": ref_train.first_grads(tr.g_opt, tr.g_params), "d": ref_train.first_grads(tr.d_opt, tr.d_params)},
-            (("g", tr.g, gw), ("d", tr.d, dw), ("g_ema", tr.g_ema, gw), ("d_ema", tr.d_ema, dw)))
+            (("g", tr.g, gw), ("d", tr.d, dw), ("g_ema", tr.g_ema, gw), ("d_ema", tr.d_ema, dw)), tr.d_opt)
         out["numel"] = {f"{side}.{n}": p.numel() for side, module in (("g", tr.g), ("d", tr.d))
                         for n, p in module.named_parameters()}
         return out
@@ -358,9 +363,13 @@ def compare(obs: dict, ref: dict) -> dict:
 
     d_loss_gap  the first iteration's D loss, which no update precedes,
                 relative to the reference's
-    d_grad_gap  D's gradient at its last step of the first iteration (R1's,
-                which differentiates D twice), by the worst leaf, in norm
-                and in its length along the reference's (`_d_grad_gap`)
+    d_grad_gap  D's gradient at its first step (the first iteration's D
+                phase, which no update precedes), by the worst leaf, in norm
+                and in its length along the reference's (`_d_grad_gap`);
+                not R1's, later in the iteration: it follows D's first
+                update and pruning, whose masks two runs of either side on
+                one seed may draw apart, and then reads as far as the faults
+                do
     change_gap  the norm of each leaf's change after `change_after`
                 iterations, by the worst leaf, leaving out leaves whose
                 reference gradient is under a thousandth of the median
@@ -382,7 +391,7 @@ def compare(obs: dict, ref: dict) -> dict:
     """
     out = {"d_loss_gap": abs(obs["d_loss"] - ref["d_loss"]) / abs(ref["d_loss"])}
     if (set(obs["grads"]) != set(ref["grads"]) or set(obs["changes"]) != set(ref["changes"])
-            or set(obs["d_grads"]) != set(ref["d_grads"])):
+            or set(obs.get("d_grads", ())) != set(ref["d_grads"])):
         return {**out, "d_grad_gap": math.inf, "change_gap": math.inf, "mask_flips": math.inf}
     gb = _pooled(_norms(obs["grads"], ref["grads"], obs["masks"], ref["masks"])[1], ref["numel"])
     ca, cb = (_pooled(n, ref["numel"]) for n in _norms(obs["changes"], ref["changes"], obs["masks"], ref["masks"]))
