@@ -181,6 +181,16 @@ Phases, each raising on failure:
      `decode_batch` of 2; K1-K4 launched (`native_cli`), the wait in
      `next(train_loader)` and run_iteration's seconds beside phase 14's
      staged run
+ 22. StyleGAN3-T's generation (`nn/stylegan3.py`, the benchmark's
+     `sg3t-ffhqu256-fid5k`): (a) K6 at the ten conv shapes of its 256px
+     chunk at batch 100 (the input padded by 1, Cin 512-64 with 362, 181
+     and 91 among them, sides 38-278, a zero noise, slope 1, gain 1) against
+     its plain version; (b) one seeded chunk of 100 with fast=True, the
+     launch counts zeroed just before it: K6 14 times, K1 twice (the
+     mapping), K3 and K4 never, `ops.filtered_lrelu` 15 calls; against the
+     same chunk with fast=False within 1e-4 * max|plain|; the chunk's ms,
+     both peaks, K6's device ms in it and the records of the ops inside
+     `sg3.modconv` by name
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -268,7 +278,14 @@ from rick_tpu_torch.metrics.precision_recall import (
     precision_and_recall_device,
     radii_device,
 )
-from rick_tpu_torch.nn import Discriminator, DiscriminatorConfig, Generator, GeneratorConfig
+from rick_tpu_torch.nn import (
+    Discriminator,
+    DiscriminatorConfig,
+    Generator,
+    Generator3,
+    Generator3Config,
+    GeneratorConfig,
+)
 from rick_tpu_torch.ops import (
     STAGES,
     _build,
@@ -315,6 +332,7 @@ from rick_tpu_torch.train import steps
 from rick_tpu_torch.train.adam import exp_avg_sq, step_counts
 from rick_tpu_torch.train.masks import d_final, d_trainable, g_trainable
 from rick_tpu_torch.train.state import trainable_params
+from rick_tpu_torch.utils import trace
 
 DEV = "cuda"
 SIZE = 256
@@ -3153,6 +3171,144 @@ def native_phase(card: str, root: str, staged_iteration_s: float) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 22: StyleGAN3-T's generation
+# ---------------------------------------------------------------------------
+
+SG3_CFG = Generator3Config()  # 256px, the benchmark's `stylegan3-t-ffhqu256`
+# G's fast chunk against its plain chunk on the card: K6's 1e-4 per conv does
+# not grow through the layers, each being normalized by demodulation
+SG3_TOL = 1e-4
+
+
+def sg3_k6_shapes() -> list:
+    """(Cin, Cout, side) of K6's launches in a StyleGAN3-T chunk, each once:
+    the 3x3 convs of the schedule, the input padded by 1 (side = the layer's
+    input side + 2)."""
+    shapes = []
+    for spec in SG3_CFG.layers():
+        shape = (spec.in_channels, spec.out_channels, spec.in_size + 2)
+        if not spec.is_torgb and shape not in shapes:
+            shapes.append(shape)
+    return shapes
+
+
+def sg3_k6_cases(gen: torch.Generator):
+    """K6 at StyleGAN3-T's shapes at batch 100, as `nn/stylegan3.py` routes
+    them: a zero-padded input, a zero noise of weight 0, slope 1, gain 1."""
+    dev, cases = DEV, []
+    for cin, cout, side in sg3_k6_shapes():
+        x = F.pad(torch.randn((GEN_BATCH, cin, side - 2, side - 2), generator=gen, device=dev), (1, 1, 1, 1))
+        s = torch.rand((GEN_BATCH, cin), generator=gen, device=dev) + 0.5
+        w = torch.randn((cout, cin, 3, 3), generator=gen, device=dev) / (9 * cin) ** 0.5
+        demod = torch.rand((GEN_BATCH, cout), generator=gen, device=dev) + 0.5
+        noise = torch.zeros((1, 1, side, side), device=dev)
+        a = (x, s, w, demod, noise, torch.zeros(1, device=dev), torch.randn(cout, generator=gen, device=dev) * 0.1)
+        nbytes, flops, tf32_flops = modconv_act_work(GEN_BATCH, cin, cout, side, side, 1)
+        cases.append(case("modconv_act", f"{(GEN_BATCH, cin, side, side)}->{cout} stylegan3",
+                          lambda a=a: modconv_act(*a, slope=1.0, gain=1.0),
+                          lambda a=a: modconv_act_ref(*a, slope=1.0, gain=1.0), nbytes, flops, tf32_flops,
+                          kernel="modconv_act_kernel"))
+    return cases
+
+
+def device_ms_under(fn, span_name: str) -> tuple:
+    """({record name: ms} of the device records that ops inside the spans
+    named `span_name` launched, {record name: ms} of all of them) in one
+    fn() under torch.profiler.  The profiler attaches a record to the op
+    that launched it; K6's launches, made through ctypes, belong to no op,
+    so they are among the second only."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    under = {}
+    for e in prof.events():
+        p = e
+        while p is not None and p.name != span_name:
+            p = p.cpu_parent
+        if p is None:
+            continue
+        for k in e.kernels:
+            under[k.name] = under.get(k.name, 0.0) + k.duration / 1000.0
+    every = {e.key: e.device_time_total / 1000.0 for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA}
+    return under, every
+
+
+def sg3_phase(card: str) -> dict:
+    """StyleGAN3-T (`nn/stylegan3.py`, the benchmark's `sg3t-ffhqu256-fid5k`)
+    on the card: K6 at its shapes against K6's plain version; one seeded
+    256px chunk of 100 with fast=True (K6 14 times, K1 twice for the mapping,
+    K3 and K4 never, the filtered leaky ReLU 15 times) against the same
+    chunk with fast=False; the chunk's ms, peak memory and `sg3.modconv`'s
+    device records.  Returns the chunk's launches per kernel."""
+    t0 = time.perf_counter()
+    print(f"  (a) K6 at the {len(sg3_k6_shapes())} conv shapes of a chunk, batch {GEN_BATCH}, tolerance "
+          f"{KERNEL_TOL['modconv_act']} * max|ref|", flush=True)
+    run_cases(sg3_k6_cases(torch.Generator(device=DEV).manual_seed(1236)))
+    torch.cuda.empty_cache()
+
+    print(f"  (b) one {SG3_CFG.size}px chunk of {GEN_BATCH}, fast vs plain on the card, tolerance {SG3_TOL} * "
+          "max|plain|", flush=True)
+    g = Generator3(SG3_CFG, rng=torch.Generator(device=DEV).manual_seed(0), device=DEV).eval()
+    with torch.no_grad():
+        # the input's affine starts at zero and every bias and magnitude at
+        # their constants: move them so that the rotation, the bias paths
+        # and the input gain are exercised
+        g.synthesis.input.affine.weight.normal_(0.0, 0.1, generator=torch.Generator(device=DEV).manual_seed(1))
+        for p in list(g.synthesis.parameters()) + [b for n, b in g.named_buffers() if n.endswith("magnitude_ema")]:
+            if p.ndim <= 1:
+                p.add_(torch.rand(p.shape, generator=torch.Generator(device=DEV).manual_seed(2), device=DEV) * 0.1)
+    z = torch.randn((GEN_BATCH, SG3_CFG.style_dim), generator=torch.Generator(device=DEV).manual_seed(3), device=DEV)
+    with torch.inference_mode():
+        g([z], fast=True)  # warm-up: K6's first launch at each shape
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        with trace.recording():
+            fast, _ = g([z], fast=True)
+            torch.cuda.synchronize()
+        counts, calls = launch_counts(), {k: c for k, (c, _) in trace.counters().items()}
+        fast_peak = torch.cuda.max_memory_allocated()
+        print(f"  launches in the chunk {counts}; counted calls {calls}; peak {fast_peak / 1e9:.2f} GB", flush=True)
+        require(counts["modconv_act"] == 14 and calls.get("ops.modconv_act") == 14,
+                f"K6 launched {counts['modconv_act']} times in the chunk, not once for each of the 14 3x3 convs")
+        require(counts["fused_bias_act"] == SG3_CFG.n_mlp,
+                f"K1 launched {counts['fused_bias_act']} times, not once per mapping layer ({SG3_CFG.n_mlp})")
+        require(counts["modconv_epilogue"] == 0 and counts["convt_blur_act"] == 0,
+                f"K3 or K4 launched in StyleGAN3's generation: {counts}")
+        require(calls.get("ops.filtered_lrelu") == len(SG3_CFG.layers()),
+                f"ops.filtered_lrelu called {calls.get('ops.filtered_lrelu')} times, not once per layer")
+        torch.cuda.reset_peak_memory_stats()
+        plain, _ = g([z], fast=False)
+        torch.cuda.synchronize()
+        plain_peak = torch.cuda.max_memory_allocated()
+        require(fast.shape == (GEN_BATCH, 3, SG3_CFG.size, SG3_CFG.size) and bool(torch.isfinite(fast).all()),
+                f"fast chunk: shape {tuple(fast.shape)} or non-finite values")
+        require(float(plain.std()) > 0.01, f"the plain chunk is flat (std {float(plain.std()):.3e})")
+        abs_err, rel = rel_err(fast, plain)
+        print(f"  fast vs plain: max_abs_err={abs_err:.3e} rel={rel:.3e}; plain chunk peak {plain_peak / 1e9:.2f} GB",
+              flush=True)
+        require(rel <= SG3_TOL, f"StyleGAN3 fast chunk vs plain: rel err {rel:.3e} > {SG3_TOL}")
+        del fast, plain
+
+        fast_ms = cuda_ms(lambda: g([z], fast=True), iters=3)
+        plain_ms = cuda_ms(lambda: g([z], fast=False), iters=3)
+        print(f"  chunk ms: fast {fast_ms:.1f}, plain {plain_ms:.1f} (img/s {1e3 * GEN_BATCH / fast_ms:.1f}) [{card}]",
+              flush=True)
+        under, every = device_ms_under(lambda: g([z], fast=True), "sg3.modconv")
+    k6_ms = sum(ms for name, ms in every.items() if "modconv_act_kernel" in name)
+    top = sorted(((ms, name) for name, ms in under.items()), reverse=True)[:6]
+    print(f"  one chunk under the profiler: device ms {sum(every.values()):.2f}, K6 {k6_ms:.2f}; the ops inside "
+          f"sg3.modconv {sum(under.values()):.2f}, by record: "
+          + "; ".join(f"{name[:90]} {ms:.2f}" for ms, name in top), flush=True)
+    print(f"  phase 22: {time.perf_counter() - t0:.1f} s", flush=True)
+    del g
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     card = card_line()
     print(card, flush=True)
@@ -3332,6 +3488,10 @@ def main() -> int:
               "and rick_tpu's float resize, images/s by threads, the train CLI's host stream through it",
               flush=True)
         native_cli_counts = native_phase(card, root, cli_first["iteration_s"])
+
+    print(f"[22] StyleGAN3-T: K6 at its conv shapes, a {SG3_CFG.size}px chunk of {GEN_BATCH} fast vs plain, its "
+          "launches", flush=True)
+    sg3_counts = sg3_phase(card)
     print(f"  chip_smoke total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = []
@@ -3341,7 +3501,7 @@ def main() -> int:
                   "cli": cli_counts[name], "ada": ada_counts[name], "ada_cli": ada_cli_counts[name],
                   "score": score_counts[name], **{run: counts[name] for run, counts in dp_runs.items()},
                   "cat_cli": cat["counts"][name], "ada_fir_cli": fir_cli_counts[name],
-                  "native_cli": native_cli_counts[name]}
+                  "native_cli": native_cli_counts[name], "sg3": sg3_counts[name]}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces, launches=sum(by_run.values()),
             max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],

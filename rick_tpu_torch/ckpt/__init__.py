@@ -1,6 +1,7 @@
 """Checkpoint layer: rick_tpu params and train states <-> state dicts and
-`TrainState`, rosinality `.pt` loading and writing, full-state `.npz`
-checkpoints in rick_tpu's format, and the background writer."""
+`TrainState`, rosinality `.pt` loading and writing, NVlabs' StyleGAN3 G_ema
+state dicts, full-state `.npz` checkpoints in rick_tpu's format, and the
+background writer."""
 
 from rick_tpu_torch.ckpt.convert import (
     d_masks_from_jax,
@@ -9,6 +10,7 @@ from rick_tpu_torch.ckpt.convert import (
     discriminator_state_dict_from_jax,
     g_masks_from_jax,
     g_optim_state_dict,
+    generator3_state_dict_from_nvlabs,
     generator_params_from_state_dict,
     generator_state_dict_from_jax,
     inception_state_dict_from_jax,
@@ -29,6 +31,7 @@ __all__ = [
     "discriminator_state_dict_from_jax",
     "g_masks_from_jax",
     "g_optim_state_dict",
+    "generator3_state_dict_from_nvlabs",
     "generator_params_from_state_dict",
     "generator_state_dict_from_jax",
     "inception_state_dict_from_jax",

@@ -18,6 +18,9 @@ module imports neither jax nor any of `rick_tpu`.  Keys (rosinality layout):
     convs.0.0.weight / convs.0.1.bias
     convs.{b}.conv1.0.weight / .conv1.1.bias / .conv2.1.weight / .conv2.2.bias / .skip.1.weight
     final_conv.0.weight / final_conv.1.bias, final_linear.{0,1}.weight/bias
+
+StyleGAN3-T's `Generator3` keeps NVlabs' keys; `generator3_state_dict_from_nvlabs`
+takes an NVlabs G_ema state dict and drops what the port computes.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from torch import nn
 
 from rick_tpu_torch.nn.discriminator import Discriminator, DiscriminatorConfig
 from rick_tpu_torch.nn.generator import Generator, GeneratorConfig
+from rick_tpu_torch.nn.stylegan3 import Generator3
 from rick_tpu_torch.train.adam import exp_avg_sq, step_counts
 from rick_tpu_torch.train.masks import d_trainable, g_trainable
 from rick_tpu_torch.train.state import TrainConfig, TrainState, init_train_state, trainable_params
@@ -427,3 +431,31 @@ def load_checkpoint(
                 raise KeyError(f"{path} has no {name!r} state dict")
             merge_state_dict_lenient(module, ckpt[name])
     return ckpt
+
+
+# what NVlabs' G_ema holds and the port's Generator3 computes in its constructor
+NVLABS_COMPUTED = ("up_filter", "down_filter", "transform")
+
+
+def generator3_state_dict_from_nvlabs(g: Generator3, sd: Dict) -> Dict[str, torch.Tensor]:
+    """The state dict of `g` from NVlabs' `networks_stylegan3.Generator`
+    state dict (G_ema, the same keys): each layer's `up_filter` and
+    `down_filter` and the input's `transform` are checked against the ones
+    `g` computed, to 1e-6 of the largest value (the same float64 design,
+    rounded to f32 twice), and dropped; a mismatch or a filter `g` does not
+    have raises ValueError."""
+    computed = dict(g.named_buffers())
+    out = {}
+    for k, v in sd.items():
+        v = torch.as_tensor(v)
+        if k.rsplit(".", 1)[-1] not in NVLABS_COMPUTED:
+            out[k] = v
+            continue
+        mine = computed.get(k)
+        if mine is None or tuple(mine.shape) != tuple(v.shape):
+            raise ValueError(f"{k} {tuple(v.shape)}: the port's Generator3 has "
+                             f"{'no such buffer' if mine is None else tuple(mine.shape)}")
+        mine = mine.detach().cpu().double()
+        if float((v.detach().cpu().double() - mine).abs().max()) > 1e-6 * float(mine.abs().max()):
+            raise ValueError(f"{k} differs from the one the port's Generator3 computes")
+    return out

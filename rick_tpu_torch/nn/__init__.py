@@ -1,5 +1,7 @@
 """L2 models: StyleGAN2 generator / discriminator as `nn.Module`s whose state
-dicts use the rosinality keys.  Port of `rick_tpu/nn`."""
+dicts use the rosinality keys.  Port of `rick_tpu/nn`.  Beside them,
+StyleGAN3-T's generator (`Generator3`, NVlabs' keys), which the JAX package
+does not have."""
 
 from rick_tpu_torch.nn.blocks import (
     Blur,
@@ -21,6 +23,7 @@ from rick_tpu_torch.nn.blocks import (
 )
 from rick_tpu_torch.nn.discriminator import Discriminator, DiscriminatorConfig
 from rick_tpu_torch.nn.generator import Generator, GeneratorConfig
+from rick_tpu_torch.nn.stylegan3 import Generator3, Generator3Config
 
 __all__ = [
     "Blur",
@@ -33,6 +36,8 @@ __all__ = [
     "FusedLeakyReLU",
     "Generator",
     "GeneratorConfig",
+    "Generator3",
+    "Generator3Config",
     "ModulatedConv2d",
     "NoiseInjection",
     "PixelNorm",

@@ -10,10 +10,14 @@ differentiable twice; `convt_blur_act` is forward only, as in JAX, and so is
 `modconv_act` (K6: the plain StyledConv's conv and epilogue, for generation).
 `fused_bias_act` and `modconv_epilogue` have a bf16 instantiation too
 (`BF16_KERNELS`), counted apart in `launches_bf16`.
+`filtered_lrelu` (StyleGAN3's filtered leaky ReLU) is a plain chain over
+`upfirdn2d`, with no kernel behind it; it is counted under
+`ops.filtered_lrelu` too.
 `convt_blur_act_stage` (K5, the stage ablation of `convt_blur_act`) runs only
 in the ablation tool and counts its launches per stage.
 """
 
+from rick_tpu_torch.ops.filtered_lrelu import filtered_lrelu, filtered_lrelu_ref
 from rick_tpu_torch.ops.fused_act import fused_leaky_relu, fused_leaky_relu_kml, scaled_leaky_relu
 from rick_tpu_torch.ops.fused_upsample import (
     STAGES,
@@ -74,6 +78,8 @@ __all__ = [
     "convt_blur_act_stage",
     "convt_blur_act_stage_ref",
     "downsample2d",
+    "filtered_lrelu",
+    "filtered_lrelu_ref",
     "fused_bias_act",
     "fused_bias_act_bwd",
     "fused_bias_act_bwd_ref",

@@ -12,9 +12,11 @@ TF32 is off; each tolerance is relative to max|ref| and stated where used.
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from rick_tpu_torch import ops
-from rick_tpu_torch.nn import Discriminator, Generator
+from rick_tpu_torch.nn import Discriminator, Generator, Generator3, Generator3Config
+from rick_tpu_torch.utils import trace
 
 pytestmark = pytest.mark.cuda
 
@@ -119,6 +121,55 @@ def test_modconv_act_kernel_matches_plain(cuda, N, Cin, Cout, H, noise_batch):
     assert ops.modconv_act.launches == before + 1
     # sums of 9*Cin products (3xTF32, f32 accumulation) in another order than cuDNN: 1e-4
     assert _rel(got, ref) <= 1e-4
+
+
+# StyleGAN3-T's 3x3 convs at 256px as `nn/stylegan3.py` routes them into K6: the
+# input padded by 1, so that K6's padding 1 is the layer's padding 2 (conv sides
+# 38 to 278, odd multiples of 2 on which the wrapper pads rows to 4 floats), Cin
+# 362, 181 and 91 (not multiples of 8), a zero noise of weight 0, slope 1, gain 1
+SG3_MODCONV_CASES = [(4, 512, 512, 38), (4, 512, 512, 54), (4, 512, 512, 86), (4, 512, 362, 86),
+                     (4, 362, 256, 150), (4, 256, 181, 150), (4, 181, 128, 150), (2, 128, 91, 278), (2, 91, 64, 278),
+                     (2, 64, 64, 278)]
+
+
+@pytest.mark.parametrize("N,Cin,Cout,side", SG3_MODCONV_CASES)
+def test_modconv_act_kernel_at_stylegan3_shapes(cuda, N, Cin, Cout, side):
+    x = F.pad(_rand((N, Cin, side - 2, side - 2), 0, device=cuda), (1, 1, 1, 1))
+    noise = torch.zeros((1, 1, side, side), device=cuda)
+    a = [x, _rand((N, Cin), 1, 0.3, device=cuda) + 1.0, _rand((Cout, Cin, 3, 3), 2, device=cuda),
+         _rand((N, Cout), 3, device=cuda).abs() * 0.01 + 0.005, noise, torch.zeros(1, device=cuda),
+         _rand((Cout,), 5, 0.1, device=cuda)]
+    before = ops.modconv_act.launches
+    with torch.inference_mode():
+        got = ops.modconv_act(*a, slope=1.0, gain=1.0)
+        ref = ops.modconv_act_ref(*a, slope=1.0, gain=1.0)
+    assert ops.modconv_act.launches == before + 1 and got.shape == (N, Cout, side, side)
+    # sums of 9*Cin products (3xTF32, f32 accumulation) in another order than cuDNN: 1e-4
+    assert _rel(got, ref) <= 1e-4
+
+
+def test_generator3_fast_path_matches_the_plain_path_on_the_card(cuda):
+    """StyleGAN3-T at 256px, batch 4: fast=True (K6 for the 14 3x3 convs, 14
+    launches) against fast=False (cuDNN f32), both with the filtered leaky
+    ReLU's plain chain; 1e-4 of max|plain| (K6's 1e-4 per conv does not grow
+    through the layers: each is normalized by demodulation)."""
+    g = Generator3(Generator3Config(), rng=torch.Generator(device=cuda).manual_seed(0), device=cuda).eval()
+    with torch.no_grad():
+        g.synthesis.input.affine.weight.normal_(0.0, 0.1, generator=torch.Generator(device=cuda).manual_seed(1))
+        for p in g.synthesis.parameters():
+            if p.ndim == 1:
+                p.add_(torch.randn(p.shape, generator=torch.Generator(device=cuda).manual_seed(2), device=cuda) * 0.1)
+    z = torch.randn((4, 512), generator=torch.Generator(device=cuda).manual_seed(3), device=cuda)
+    before = ops.modconv_act.launches
+    with torch.inference_mode():
+        with trace.recording():
+            fast, _ = g([z], fast=True)
+            calls = {k: c for k, (c, _) in trace.counters().items()}
+        plain, _ = g([z])
+    assert ops.modconv_act.launches == before + 14
+    assert calls["ops.modconv_act"] == 14 and calls["ops.filtered_lrelu"] == 15
+    assert fast.shape == (4, 3, 256, 256) and float(plain.std()) > 0.01
+    assert _rel(fast, plain) <= 1e-4
 
 
 def test_modconv_act_raises_under_autograd_on_bf16_and_on_bad_shapes(cuda):

@@ -23,7 +23,7 @@ from rick_tpu_torch import ops
 from rick_tpu_torch.cli import train as cli_train
 from rick_tpu_torch.data import device_data_stream
 from rick_tpu_torch.metrics import Evaluator
-from rick_tpu_torch.nn import DiscriminatorConfig, GeneratorConfig
+from rick_tpu_torch.nn import DiscriminatorConfig, Generator3, Generator3Config, GeneratorConfig
 from rick_tpu_torch.train import TrainConfig, fisher_round, init_train_state, run_iteration
 from rick_tpu_torch.utils import ProfilerHook, trace
 from tests.torch_port_helpers import one_torch_thread  # noqa: F401
@@ -120,6 +120,37 @@ def test_evaluator_spans_per_chunk(state, tmp_path):
     assert _names(ann, "eval.") == ["eval.score"] + ["eval.generate", "eval.inception"] * 2
     (outer,) = [a for a in ann if a[0] == "eval.score"]
     assert all(outer[1] <= a[1] and a[2] <= outer[2] for a in ann if a[0].startswith("eval."))
+
+
+def test_stylegan3_spans_inside_generate(tmp_path):
+    """StyleGAN3's layer spans open inside `eval.generate`: per chunk one
+    `sg3.input`, and one `sg3.modconv` and one `sg3.filtered_lrelu` per
+    layer (14 and ToRGB), in turn."""
+    cfg = Generator3Config(size=32, channel_base=512, channel_max=16)
+    g = Generator3(cfg, rng=torch.Generator().manual_seed(0))
+    real = np.random.default_rng(0).integers(0, 256, (4, 3, 32, 32), dtype=np.uint8)
+    ev = Evaluator(cfg, fid_real_samples=real, inception_nsamples=4, batch_size=4, gen_batch=2, seed=1, device="cpu",
+                   inception_stop_at="Mixed_5b", inception_resize_to=75)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        ev.compute_inception_score(g)
+    ann = _annotations(prof, tmp_path)
+    chunk = ["eval.generate", "sg3.input"] + ["sg3.modconv", "sg3.filtered_lrelu"] * 15 + ["eval.inception"]
+    assert [n for n in _names(ann) if n.startswith(("eval.", "sg3."))] == ["eval.score"] + chunk * 2
+    generate = [a for a in ann if a[0] == "eval.generate"]
+    for name, start, end in ann:
+        if name.startswith("sg3."):
+            assert any(s <= start and end <= e for _, s, e in generate), name
+
+
+def test_filtered_lrelu_counts_its_calls():
+    g = Generator3(Generator3Config(size=32, channel_base=512, channel_max=16), rng=torch.Generator().manual_seed(0))
+    with trace.recording():
+        with torch.inference_mode():
+            g([torch.randn((2, 512))])
+            g([torch.randn((2, 512))], fast=True)
+        got = trace.counters()
+    assert got["ops.filtered_lrelu"][0] == 30 and got["ops.filtered_lrelu"][1] > 0
+    assert got["ops.modconv_act"][0] == 14  # the fast pass's 3x3 convs (K6's plain version on the CPU)
 
 
 class _Images:
@@ -233,7 +264,7 @@ def test_every_span_and_counter_is_in_perf_md():
     assert set(names) >= {"train.iteration", *PHASES, "fisher.round", "data.next_batch", "data.index_upload",
                           "eval.score", "eval.generate", "eval.inception", "ops.fused_bias_act",
                           "ops.fused_bias_act_bwd", "ops.modconv_epilogue", "ops.convt_blur_act",
-                          "ops.modconv_act"}
+                          "ops.modconv_act", "ops.filtered_lrelu", "sg3.input", "sg3.modconv", "sg3.filtered_lrelu"}
     perf = (REPO / "PERF.md").read_text()
     missing = {n: where for n, where in names.items() if f"`{n}`" not in perf}
     assert not missing, f"not named in PERF.md's table of spans and counters: {missing}"
