@@ -187,10 +187,16 @@ Phases, each raising on failure:
      and 91 among them, sides 38-278, a zero noise, slope 1, gain 1) against
      its plain version; (b) one seeded chunk of 100 with fast=True, the
      launch counts zeroed just before it: K6 14 times, K1 twice (the
-     mapping), K3 and K4 never, `ops.filtered_lrelu` 15 calls; against the
-     same chunk with fast=False within 1e-4 * max|plain|; the chunk's ms,
-     both peaks, K6's device ms in it and the records of the ops inside
-     `sg3.modconv` by name
+     mapping), K7 14 times, K3 and K4 never, `ops.filtered_lrelu` once
+     (ToRGB) and `ops.filtered_lrelu_act` 14 times; against the same chunk
+     with fast=False within 1e-4 * max|plain|; the chunk's ms, both peaks,
+     K6's and K7's device ms in it and the records of the ops inside
+     `sg3.modconv` by name; (c) K7 at the 14 filtered layers' shapes at
+     batch 100 (as routed: no bias) and one case with non-symmetric random
+     filters and a bias, against the plain chain (`ops.filtered_lrelu`,
+     cuDNN's TF32 off) within 1e-5 * max|ref|: device ms over 20 calls
+     beside its bound (`tools/roofline.py::filtered_lrelu_work`), the plain
+     chain's ms and the share
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -293,6 +299,8 @@ from rick_tpu_torch.ops import (
     convt_blur_act,
     convt_blur_act_ref,
     convt_blur_act_stage,
+    filtered_lrelu,
+    filtered_lrelu_act,
     fused_bias_act,
     fused_bias_act_bwd,
     fused_bias_act_bwd_ref,
@@ -313,6 +321,7 @@ from rick_tpu_torch.tools.roofline import (
     TF32_PASSES,
     bound,
     convt_ops,
+    filtered_lrelu_work,
     fused_bias_act_bytes,
     modconv_act_work,
     modconv_epilogue_bytes,
@@ -345,9 +354,11 @@ N_FISHER = 5
 SLICE_TOL = 1e-3  # generation slice vs plain: max|d| <= SLICE_TOL * max|ref|, TF32 off
 # per-kernel: max|d| <= tol * max|ref|.  K1, K2 and K3 are elementwise (at most
 # an FMA contraction apart); K4 and K6 sum 9*Cin products in another order than
-# cuDNN.
+# cuDNN; K7 sums 6 to 12 products a pass, four passes, in another order than
+# the plain chain.
 KERNEL_TOL = {"fused_bias_act": 1e-6, "fused_bias_act_bwd": 1e-6, "modconv_epilogue": 1e-6, "convt_blur_act": 1e-4,
-              "modconv_act": 1e-4, "fused_bias_act_bf16": 1e-6, "modconv_epilogue_bf16": 1e-6}
+              "modconv_act": 1e-4, "fused_bias_act_bf16": 1e-6, "modconv_epilogue_bf16": 1e-6,
+              "filtered_lrelu_act": 1e-5}
 # autograd through the kernels vs plain autograd, relative to max|ref|: K2
 # applies the slope before the gain where autograd of the plain version
 # applies it after (an ulp), and the bias, demod, noise and noise-weight
@@ -393,6 +404,10 @@ SOURCES = {
                     "none: XLA's conv (rick_tpu/nn/blocks.py) + rick_tpu/ops/pallas_kernels.py:176, fused"),
 }
 K5_SOURCE = ("rick_tpu_torch/csrc/convt_blur_act.cu", "scripts/bench_fused_ablate.py:153")
+# K7 runs in StyleGAN3-T's generation alone (phase 22), so it is not among
+# SOURCES, every one of which the StyleGAN2 runs must launch
+K7_SOURCE = ("rick_tpu_torch/csrc/filtered_lrelu.cu",
+             "none: rick_tpu has no StyleGAN3; the plain chain of ops/filtered_lrelu.py, fused")
 
 
 def require(cond: bool, msg: str) -> None:
@@ -3212,6 +3227,40 @@ def sg3_k6_cases(gen: torch.Generator):
     return cases
 
 
+def sg3_k7_cases(gen: torch.Generator):
+    """K7 at the 14 filtered layers of a StyleGAN3-T chunk at batch 100, as
+    `nn/stylegan3.py` routes them (the layer's filters, no bias: K6 added
+    it), and once more at layer 7 with non-symmetric random filters and a
+    bias, which pin each filter's orientation and the bias path; each
+    against the plain chain."""
+    cases = []
+    g = Generator3(SG3_CFG, rng=torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    for spec in SG3_CFG.layers()[:-1]:
+        layer = getattr(g.synthesis, spec.name)
+        side = spec.in_size + spec.kernel - 1
+        x = torch.randn((GEN_BATCH, spec.out_channels, side, side), generator=gen, device=DEV)
+        a = [x, layer.up_filter, layer.down_filter, None]
+        label = f"{spec.name} {(GEN_BATCH, spec.out_channels, side, side)} up {spec.up}"
+        if spec.name.startswith("L7_"):
+            fu = torch.randn(spec.up_taps, generator=gen, device=DEV) * 0.3
+            fd = torch.randn(spec.down_taps, generator=gen, device=DEV) * 0.3
+            b = torch.randn(spec.out_channels, generator=gen, device=DEV)
+            cases.append(_k7_case(spec, [x * 10, fu, fd, b], label + " random filters, bias"))
+        cases.append(_k7_case(spec, a, label))
+    del g
+    return cases
+
+
+def _k7_case(spec, a, label: str):
+    """K7 on a = (x, fu, fd, b) at `spec`'s factors and padding, against the
+    plain chain, with its bytes and operations."""
+    kw = dict(up=spec.up, down=spec.down, padding=spec.padding, gain=2**0.5, slope=0.2, clamp=256.0)
+    nbytes, flops = filtered_lrelu_work(*a[0].shape, spec.out_size, spec.out_size, spec.up, spec.down, spec.up_taps,
+                                        spec.down_taps, spec.padding)
+    return case("filtered_lrelu_act", label, lambda a=a: filtered_lrelu_act(*a, **kw),
+                lambda a=a: filtered_lrelu(*a, **kw), nbytes, flops, kernel="flrelu_kernel")
+
+
 def device_ms_under(fn, span_name: str) -> tuple:
     """({record name: ms} of the device records that ops inside the spans
     named `span_name` launched, {record name: ms} of all of them) in one
@@ -3236,13 +3285,14 @@ def device_ms_under(fn, span_name: str) -> tuple:
     return under, every
 
 
-def sg3_phase(card: str) -> dict:
+def sg3_phase(card: str) -> tuple:
     """StyleGAN3-T (`nn/stylegan3.py`, the benchmark's `sg3t-ffhqu256-fid5k`)
     on the card: K6 at its shapes against K6's plain version; one seeded
-    256px chunk of 100 with fast=True (K6 14 times, K1 twice for the mapping,
-    K3 and K4 never, the filtered leaky ReLU 15 times) against the same
-    chunk with fast=False; the chunk's ms, peak memory and `sg3.modconv`'s
-    device records.  Returns the chunk's launches per kernel."""
+    256px chunk of 100 with fast=True (K6 and K7 14 times each, K1 twice for
+    the mapping, K3 and K4 never, the plain filtered leaky ReLU once, for
+    ToRGB) against the same chunk with fast=False; the chunk's ms, peak
+    memory and `sg3.modconv`'s device records; K7 at its shapes against the
+    plain chain.  Returns the chunk's launches per kernel and K7's row."""
     t0 = time.perf_counter()
     print(f"  (a) K6 at the {len(sg3_k6_shapes())} conv shapes of a chunk, batch {GEN_BATCH}, tolerance "
           f"{KERNEL_TOL['modconv_act']} * max|ref|", flush=True)
@@ -3278,8 +3328,12 @@ def sg3_phase(card: str) -> dict:
                 f"K1 launched {counts['fused_bias_act']} times, not once per mapping layer ({SG3_CFG.n_mlp})")
         require(counts["modconv_epilogue"] == 0 and counts["convt_blur_act"] == 0,
                 f"K3 or K4 launched in StyleGAN3's generation: {counts}")
-        require(calls.get("ops.filtered_lrelu") == len(SG3_CFG.layers()),
-                f"ops.filtered_lrelu called {calls.get('ops.filtered_lrelu')} times, not once per layer")
+        filtered = len(SG3_CFG.layers()) - 1
+        require(counts["filtered_lrelu_act"] == filtered and calls.get("ops.filtered_lrelu_act") == filtered,
+                f"K7 launched {counts['filtered_lrelu_act']} times in the chunk, not once for each of the "
+                f"{filtered} filtered layers")
+        require(calls.get("ops.filtered_lrelu") == 1,
+                f"ops.filtered_lrelu called {calls.get('ops.filtered_lrelu')} times, not once (ToRGB)")
         torch.cuda.reset_peak_memory_stats()
         plain, _ = g([z], fast=False)
         torch.cuda.synchronize()
@@ -3299,14 +3353,21 @@ def sg3_phase(card: str) -> dict:
               flush=True)
         under, every = device_ms_under(lambda: g([z], fast=True), "sg3.modconv")
     k6_ms = sum(ms for name, ms in every.items() if "modconv_act_kernel" in name)
+    k7_ms = sum(ms for name, ms in every.items() if "flrelu_kernel" in name)
     top = sorted(((ms, name) for name, ms in under.items()), reverse=True)[:6]
-    print(f"  one chunk under the profiler: device ms {sum(every.values()):.2f}, K6 {k6_ms:.2f}; the ops inside "
-          f"sg3.modconv {sum(under.values()):.2f}, by record: "
+    print(f"  one chunk under the profiler: device ms {sum(every.values()):.2f}, K6 {k6_ms:.2f}, K7 {k7_ms:.2f}; "
+          f"the ops inside sg3.modconv {sum(under.values()):.2f}, by record: "
           + "; ".join(f"{name[:90]} {ms:.2f}" for ms, name in top), flush=True)
-    print(f"  phase 22: {time.perf_counter() - t0:.1f} s", flush=True)
     del g
     torch.cuda.empty_cache()
-    return counts
+
+    print(f"  (c) K7 at the {len(SG3_CFG.layers()) - 1} filtered layers' shapes, batch {GEN_BATCH}, and one case "
+          f"with random filters, against the plain chain, tolerance {KERNEL_TOL['filtered_lrelu_act']} * max|ref|",
+          flush=True)
+    k7 = run_cases(sg3_k7_cases(torch.Generator(device=DEV).manual_seed(1237)))["filtered_lrelu_act"]
+    torch.cuda.empty_cache()
+    print(f"  phase 22: {time.perf_counter() - t0:.1f} s", flush=True)
+    return counts, k7
 
 
 def main() -> int:
@@ -3490,8 +3551,8 @@ def main() -> int:
         native_cli_counts = native_phase(card, root, cli_first["iteration_s"])
 
     print(f"[22] StyleGAN3-T: K6 at its conv shapes, a {SG3_CFG.size}px chunk of {GEN_BATCH} fast vs plain, its "
-          "launches", flush=True)
-    sg3_counts = sg3_phase(card)
+          "launches, K7 at its shapes", flush=True)
+    sg3_counts, k7 = sg3_phase(card)
     print(f"  chip_smoke total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = []
@@ -3509,6 +3570,12 @@ def main() -> int:
             ms_with_host=k["ms_with_host"],
         ))
     kernels += k5["entries"]
+    kernels.append(dict(
+        name="filtered_lrelu_act", route="cuda", source=K7_SOURCE[0], replaces=K7_SOURCE[1],
+        launches=sg3_counts["filtered_lrelu_act"], max_abs_err=k7["max_abs_err"], ms=k7["ms"],
+        plain_ms=k7["plain_ms"], bound_ms=k7["bound_ms"], bound_by=k7["bound_by"], library_ms=None, shape=k7["shape"],
+        launches_by_run={"sg3": sg3_counts["filtered_lrelu_act"]}, ms_with_host=k7["ms_with_host"],
+    ))
     for name, (source, replaces) in BF16_SOURCES.items():
         k = bf16_kernels[name]
         by_run = {run: counts[name] for run, counts in {**bf16_runs, **dp_runs}.items()}

@@ -34,9 +34,10 @@ their RMS over the whole batch, demod = rsqrt(sum_i s_n^2 sum_kk w_n^2 +
 leaky ReLU as `ops.filtered_lrelu`: differentiable by autograd.
 `fast=True` (generation) sends each 3x3 conv through `ops.modconv_act`
 (K6: padding 1 on an input padded by 1, demod, the layer's bias, a zero
-noise, slope 1, gain 1), forward only; on a CPU tensor that is K6's plain
-version.  Only float32 is computed.  There is no per-layer noise:
-`layer_noise` gives none and `num_layers` is 0.
+noise, slope 1, gain 1) and each filtered leaky ReLU but ToRGB's through
+`ops.filtered_lrelu_act` (K7), forward only; on a CPU tensor those are
+their plain versions.  Only float32 is computed.  There is no per-layer
+noise: `layer_noise` gives none and `num_layers` is 0.
 
 Spans (`utils/trace.py`): `sg3.input` around the input, `sg3.modconv` around
 each layer's affine and modulated conv, `sg3.filtered_lrelu` around each
@@ -55,7 +56,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from rick_tpu_torch.nn.blocks import EqualLinear, pixel_norm
-from rick_tpu_torch.ops import filtered_lrelu, modconv_act
+from rick_tpu_torch.ops import filtered_lrelu, filtered_lrelu_act, modconv_act
 from rick_tpu_torch.utils.trace import span
 
 SQRT2 = math.sqrt(2.0)
@@ -281,6 +282,9 @@ class SynthesisLayer3(nn.Module):
         with span("sg3.modconv"):
             x, bias = self.modulated_conv(x, w, fast)
         with span("sg3.filtered_lrelu"):
+            if fast and not spec.is_torgb:
+                return filtered_lrelu_act(x, self.up_filter, self.down_filter, bias, spec.up, spec.down,
+                                          spec.padding, gain=SQRT2, slope=0.2, clamp=self.conv_clamp)
             return filtered_lrelu(x, self.up_filter, self.down_filter, bias, spec.up, spec.down, spec.padding,
                                   gain=1.0 if spec.is_torgb else SQRT2, slope=1.0 if spec.is_torgb else 0.2,
                                   clamp=self.conv_clamp)

@@ -1,8 +1,9 @@
 """L0 ops: StyleGAN2 resampling, fused bias/activation, and the CUDA kernels.
 
 Every kernel wrapper (`fused_bias_act`, `fused_bias_act_bwd`,
-`modconv_epilogue`, `convt_blur_act`, `modconv_act`) takes its plain PyTorch
-version for CPU tensors and launches its CUDA kernel for CUDA tensors;
+`modconv_epilogue`, `convt_blur_act`, `modconv_act`, `filtered_lrelu_act`)
+takes its plain PyTorch version for CPU tensors and launches its CUDA kernel
+for CUDA tensors;
 `KERNELS` lists them, each with a `launches` count, and inside
 `utils.trace.recording()` each call is counted, with its host time, under
 `ops.<wrapper>`.  `fused_bias_act` and `modconv_epilogue` are
@@ -11,13 +12,14 @@ differentiable twice; `convt_blur_act` is forward only, as in JAX, and so is
 `fused_bias_act` and `modconv_epilogue` have a bf16 instantiation too
 (`BF16_KERNELS`), counted apart in `launches_bf16`.
 `filtered_lrelu` (StyleGAN3's filtered leaky ReLU) is a plain chain over
-`upfirdn2d`, with no kernel behind it; it is counted under
-`ops.filtered_lrelu` too.
+`upfirdn2d`, differentiable, counted under `ops.filtered_lrelu` too;
+`filtered_lrelu_act` (K7) is the same function in one kernel, forward only,
+for generation.
 `convt_blur_act_stage` (K5, the stage ablation of `convt_blur_act`) runs only
 in the ablation tool and counts its launches per stage.
 """
 
-from rick_tpu_torch.ops.filtered_lrelu import filtered_lrelu, filtered_lrelu_ref
+from rick_tpu_torch.ops.filtered_lrelu import filtered_lrelu, filtered_lrelu_act, filtered_lrelu_ref
 from rick_tpu_torch.ops.fused_act import fused_leaky_relu, fused_leaky_relu_kml, scaled_leaky_relu
 from rick_tpu_torch.ops.fused_upsample import (
     STAGES,
@@ -45,7 +47,7 @@ from rick_tpu_torch.ops.resample import (
     upsample2d,
 )
 
-KERNELS = (fused_bias_act, fused_bias_act_bwd, modconv_epilogue, convt_blur_act, modconv_act)
+KERNELS = (fused_bias_act, fused_bias_act_bwd, modconv_epilogue, convt_blur_act, modconv_act, filtered_lrelu_act)
 BF16_KERNELS = (fused_bias_act, modconv_epilogue)
 
 
@@ -79,6 +81,7 @@ __all__ = [
     "convt_blur_act_stage_ref",
     "downsample2d",
     "filtered_lrelu",
+    "filtered_lrelu_act",
     "filtered_lrelu_ref",
     "fused_bias_act",
     "fused_bias_act_bwd",

@@ -78,6 +78,9 @@ SIGNATURES = {
     # x, wt, s, demod, noise, noise_weight, bias, y, N, Cin, Cout, H, W,
     # noise_batched, slope, gain, stream
     "rick_modconv_act": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    # x, b (or null), fu, fd, y, N, C, H_in, W_in, H_out, W_out, up, down,
+    # taps_up, taps_down, px0, px1, py0, py1, gain, slope, clamp, stream
+    "rick_filtered_lrelu": [_P, _P, _P, _P, _P, *[_I] * 14, _F, _F, _F, _P],
 }
 
 _lib: Optional[types.SimpleNamespace] = None

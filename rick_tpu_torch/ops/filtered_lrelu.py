@@ -13,12 +13,18 @@ None is the identity (its factor is then 1).
 
 Every filter pass is one 1-D `upfirdn2d_general` along one axis: the y
 passes first, then the x passes (the two orders are the same sums).  The
-chain is differentiable by autograd to any order.  There is no CUDA kernel
-behind it: on the card it runs the same chain, so a (N, C) slab's largest
-upsampled grid (layer 10 of StyleGAN3-T at 256px: 600 x 600 per channel)
-is split into blocks of channels of at most `GRID_ELEMS` elements each.
-Inside `utils.trace.recording()` each call is counted under
-`ops.filtered_lrelu`.
+chain is differentiable by autograd to any order.  `filtered_lrelu` runs
+it on any device, so a (N, C) slab's largest upsampled grid (layer 10 of
+StyleGAN3-T at 256px: 600 x 600 per channel) is split into blocks of
+channels of at most `GRID_ELEMS` elements each.  Inside
+`utils.trace.recording()` each call is counted under `ops.filtered_lrelu`.
+
+`filtered_lrelu_act` is the same function as one CUDA kernel (K7,
+`csrc/filtered_lrelu.cu`) for generation: forward only, float32 only, up 2
+or 4 with 6 * up taps, down 2 with 12 taps.  It launches the kernel for
+CUDA tensors and takes `filtered_lrelu_ref` for CPU tensors, raises on what
+the kernel does not take, counts its launches in
+`filtered_lrelu_act.launches` and its calls under `ops.filtered_lrelu_act`.
 """
 
 from __future__ import annotations
@@ -29,11 +35,15 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from rick_tpu_torch.ops import _build
+from rick_tpu_torch.ops.kernels import _require, check_cuda, forbid_autograd
 from rick_tpu_torch.ops.resample import upfirdn2d_general
 from rick_tpu_torch.utils.trace import count
 
 SQRT2 = math.sqrt(2.0)
 GRID_ELEMS = 1 << 30  # elements of one block's upsampled grid (4 GiB in f32)
+ACT_UPS = (2, 4)  # K7's up factors: 6 taps a phase
+ACT_DOWN, ACT_DOWN_TAPS = 2, 12
 
 
 def _passes(x: torch.Tensor, f: Optional[torch.Tensor], up: int, down: int, pad: Sequence[int],
@@ -82,3 +92,51 @@ def filtered_lrelu(x: torch.Tensor, fu: Optional[torch.Tensor], fd: Optional[tor
         biases = [None] * -(-c // block) if b is None else b.split(block)
         return torch.cat([filtered_lrelu_ref(xc, fu, fd, bc, **kw) for xc, bc in zip(x.split(block, dim=1), biases)],
                          dim=1)
+
+
+def output_size(n: int, up: int, down: int, taps_up: int, taps_down: int, pad0: int, pad1: int) -> int:
+    """The output length along an axis of n input samples."""
+    return (n * up + pad0 + pad1 - (taps_up - 1) - (taps_down - 1) + down - 1) // down
+
+
+def filtered_lrelu_act(x: torch.Tensor, fu: torch.Tensor, fd: torch.Tensor, b: Optional[torch.Tensor] = None,
+                       up: int = 2, down: int = 2, padding: Sequence[int] = (0, 0, 0, 0), gain: float = SQRT2,
+                       slope: float = 0.2, clamp: Optional[float] = None) -> torch.Tensor:
+    """`filtered_lrelu_ref` in one kernel (K7) on a CUDA tensor, the plain
+    chain on a CPU tensor.  x (N, C, H, W) contiguous float32; fu (6 up,),
+    fd (12,), b (C,) or None.  Forward only."""
+    name = "filtered_lrelu_act"
+    with count("ops.filtered_lrelu_act"):
+        _require(up in ACT_UPS and down == ACT_DOWN, f"{name}: up {up}, down {down}: the kernel takes up "
+                 f"{' or '.join(map(str, ACT_UPS))} and down {ACT_DOWN}")
+        _require(x.ndim == 4, f"{name}: x must be 4-D, got {tuple(x.shape)}")
+        n, c, h, w = x.shape
+        _require(tuple(fu.shape) == (6 * up,), f"{name}: fu {tuple(fu.shape)} != ({6 * up},)")
+        _require(tuple(fd.shape) == (ACT_DOWN_TAPS,), f"{name}: fd {tuple(fd.shape)} != ({ACT_DOWN_TAPS},)")
+        _require(b is None or tuple(b.shape) == (c,), f"{name}: b {None if b is None else tuple(b.shape)} != ({c},)")
+        _require(len(padding) == 4, f"{name}: padding {tuple(padding)} is not (px0, px1, py0, py1)")
+        px0, px1, py0, py1 = (int(v) for v in padding)
+        sizes = (output_size(h, up, down, 6 * up, ACT_DOWN_TAPS, py0, py1),
+                 output_size(w, up, down, 6 * up, ACT_DOWN_TAPS, px0, px1))
+        _require(min(sizes) > 0, f"{name}: padding {tuple(padding)} leaves no output of a {h} x {w} map")
+        tensors = dict(x=x, fu=fu, fd=fd) if b is None else dict(x=x, fu=fu, fd=fd, b=b)
+        check_cuda(name, x.device, torch.float32, **tensors)
+        forbid_autograd(name, **tensors)
+        kw = dict(up=up, down=down, padding=padding, gain=gain, slope=slope, clamp=clamp)
+        if x.device.type == "cpu":
+            return filtered_lrelu_ref(x, fu, fd, b, **kw)
+        _require(x.device.type == "cuda", f"{name}: unsupported device {x.device}")
+        y = torch.empty((n, c, *sizes), device=x.device, dtype=torch.float32)
+        if y.numel() == 0:
+            return y
+        code = _build.lib().rick_filtered_lrelu(
+            x.data_ptr(), None if b is None else b.data_ptr(), fu.data_ptr(), fd.data_ptr(), y.data_ptr(), n, c, h, w,
+            *sizes, up, down, 6 * up, ACT_DOWN_TAPS, px0, px1, py0, py1, float(gain), float(slope),
+            math.inf if clamp is None else float(clamp), _build.stream_ptr(x.device),
+        )
+        _build.check(code, name)
+        filtered_lrelu_act.launches += 1
+        return y
+
+
+filtered_lrelu_act.launches = 0

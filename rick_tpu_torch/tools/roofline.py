@@ -8,7 +8,8 @@ operations over the f32 rate, and its tensor-core operations over the TF32
 rate.  K4 (`csrc/convt_blur_act.cu`) runs the transposed conv as 3xTF32, so
 its conv counts three times (hi*hi, hi*lo, lo*hi) at the TF32 rate, and its
 blur and epilogue at the f32 rate; so does K6 (`csrc/modconv_act.cu`) its
-3x3 conv and its epilogue.
+3x3 conv and its epilogue.  K7 (`csrc/filtered_lrelu.cu`) counts its FIR
+passes at the least work they take (`filtered_lrelu_work`).
 
 The launch floor: a kernel takes at least the device time of an empty
 kernel launched with its grid on the same card (`rick_empty_launch`,
@@ -68,3 +69,21 @@ def modconv_act_work(n: int, cin: int, cout: int, h: int, w: int, noise_batch: i
     y = n * cout * h * w
     nbytes = 4 * (n * cin * h * w + n * cin + cout * cin * 9 + n * cout + noise_batch * h * w + 1 + cout + y)
     return nbytes, 4 * y, TF32_PASSES * convt_ops(n, cin, cout, h, w)
+
+
+def filtered_lrelu_work(n: int, c: int, h_in: int, w_in: int, h_out: int, w_out: int, up: int, down: int,
+                        taps_up: int, taps_down: int, padding) -> tuple:
+    """K7's (bytes, f32 operations), from the arguments of its C entry point:
+    x read once and y written once (the bias and filters are a few hundred
+    bytes); per (n, c) plane the separable up passes, polyphase (taps_up / up
+    multiply-adds per output: the x pass on the h_in input rows, the y pass
+    on the whole M_h x M_w intermediate grid), the down passes at the kept
+    positions only (taps_down per output: the x pass on the M_h rows, the y
+    pass on the output), and 4 operations per intermediate sample for the
+    leaky ReLU, gain and clamp."""
+    px0, px1, py0, py1 = padding
+    mh = h_in * up + py0 + py1 - taps_up + 1
+    mw = w_in * up + px0 + px1 - taps_up + 1
+    macs = (h_in * mw + mh * mw) * (taps_up // up) + (mh * w_out + h_out * w_out) * taps_down
+    planes = n * c
+    return 4 * planes * (h_in * w_in + h_out * w_out), planes * (2 * macs + 4 * mh * mw)

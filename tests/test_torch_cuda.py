@@ -148,11 +148,56 @@ def test_modconv_act_kernel_at_stylegan3_shapes(cuda, N, Cin, Cout, side):
     assert _rel(got, ref) <= 1e-4
 
 
+# StyleGAN3-T's filtered leaky ReLUs at 256px (`Generator3Config().layers()`):
+# (input side, up, padding), with 6 up taps up and 12 down; then the kernel's
+# other instances, each phase (-py0) mod up of its fused y pass (the layers
+# take 1 at up 2 and 2 at up 4), one with an odd side and a padding whose x
+# and y differ
+SG3_FLRELU_CASES = [(38, 2, (9, 8, 9, 8)), (38, 4, (-6, -9, -6, -9)), (54, 2, (9, 8, 9, 8)),
+                    (54, 4, (-6, -9, -6, -9)), (86, 2, (9, 8, 9, 8)), (86, 4, (-6, -9, -6, -9)),
+                    (150, 2, (9, 8, 9, 8)), (150, 4, (-6, -9, -6, -9)), (278, 2, (9, 8, 9, 8)),
+                    (278, 2, (-11, -12, -11, -12)), (54, 2, (8, 9, 8, 9)), (38, 4, (4, 1, 4, 1)),
+                    (40, 4, (-5, 2, -5, 2)), (61, 4, (3, -2, -7, 5))]
+
+
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "no_bias"])
+@pytest.mark.parametrize("side,up,padding", SG3_FLRELU_CASES)
+def test_filtered_lrelu_act_kernel_matches_the_chain(cuda, side, up, padding, bias):
+    """K7 against the plain chain on non-symmetric random filters (which
+    pin each filter's orientation), with the clamp reached: 1e-5 of
+    max|chain| (f32 sums of 6 to 12 products per pass in another order)."""
+    x = _rand((2, 3, side, side), 0, 60.0, device=cuda)
+    fu, fd = _rand((6 * up,), 1, 0.3, device=cuda), _rand((12,), 2, 0.3, device=cuda)
+    b = _rand((3,), 3, device=cuda) if bias else None
+    kw = dict(up=up, down=2, padding=padding, gain=2**0.5, slope=0.2, clamp=256.0)
+    before = ops.filtered_lrelu_act.launches
+    with torch.inference_mode():
+        got = ops.filtered_lrelu_act(x, fu, fd, b, **kw)
+        ref = ops.filtered_lrelu_ref(x, fu, fd, b, **kw)
+    assert ops.filtered_lrelu_act.launches == before + 1 and got.shape == ref.shape
+    assert bool((ref.abs() >= 256).any() or (ref.abs() > 100).any())
+    assert _rel(got, ref) <= 1e-5
+
+
+def test_filtered_lrelu_act_raises_on_the_card(cuda):
+    x, fu, fd = _rand((1, 2, 38, 38), 0, device=cuda), _rand((12,), 1, device=cuda), _rand((12,), 2, device=cuda)
+    kw = dict(up=2, down=2, padding=(9, 8, 9, 8))
+    with pytest.raises(NotImplementedError):
+        ops.filtered_lrelu_act(x.clone().requires_grad_(True), fu, fd, None, **kw)
+    with pytest.raises(ValueError, match="dtype"):
+        ops.filtered_lrelu_act(x.double(), fu, fd, None, **kw)
+    with pytest.raises(ValueError, match="is on"):
+        ops.filtered_lrelu_act(x, fu.cpu(), fd, None, **kw)
+    with pytest.raises(ValueError, match="the kernel takes up"):
+        ops.filtered_lrelu_act(x, fu, fd, None, **dict(kw, up=1))
+
+
 def test_generator3_fast_path_matches_the_plain_path_on_the_card(cuda):
-    """StyleGAN3-T at 256px, batch 4: fast=True (K6 for the 14 3x3 convs, 14
-    launches) against fast=False (cuDNN f32), both with the filtered leaky
-    ReLU's plain chain; 1e-4 of max|plain| (K6's 1e-4 per conv does not grow
-    through the layers: each is normalized by demodulation)."""
+    """StyleGAN3-T at 256px, batch 4: fast=True (K6 for the 14 3x3 convs and
+    K7 for the 14 filtered leaky ReLUs, 14 launches each; ToRGB's on the
+    plain chain) against fast=False (cuDNN f32 and the plain chain); 1e-4 of
+    max|plain| (K6's 1e-4 per conv does not grow through the layers: each is
+    normalized by demodulation; K7 adds f32 rounding)."""
     g = Generator3(Generator3Config(), rng=torch.Generator(device=cuda).manual_seed(0), device=cuda).eval()
     with torch.no_grad():
         g.synthesis.input.affine.weight.normal_(0.0, 0.1, generator=torch.Generator(device=cuda).manual_seed(1))
@@ -160,14 +205,15 @@ def test_generator3_fast_path_matches_the_plain_path_on_the_card(cuda):
             if p.ndim == 1:
                 p.add_(torch.randn(p.shape, generator=torch.Generator(device=cuda).manual_seed(2), device=cuda) * 0.1)
     z = torch.randn((4, 512), generator=torch.Generator(device=cuda).manual_seed(3), device=cuda)
-    before = ops.modconv_act.launches
+    before, before_k7 = ops.modconv_act.launches, ops.filtered_lrelu_act.launches
     with torch.inference_mode():
         with trace.recording():
             fast, _ = g([z], fast=True)
             calls = {k: c for k, (c, _) in trace.counters().items()}
         plain, _ = g([z])
-    assert ops.modconv_act.launches == before + 14
-    assert calls["ops.modconv_act"] == 14 and calls["ops.filtered_lrelu"] == 15
+    assert ops.modconv_act.launches == before + 14 and ops.filtered_lrelu_act.launches == before_k7 + 14
+    assert calls["ops.modconv_act"] == 14 and calls["ops.filtered_lrelu_act"] == 14
+    assert calls["ops.filtered_lrelu"] == 1
     assert fast.shape == (4, 3, 256, 256) and float(plain.std()) > 0.01
     assert _rel(fast, plain) <= 1e-4
 

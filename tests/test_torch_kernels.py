@@ -375,8 +375,13 @@ def test_wrappers_take_plain_version_on_cpu_and_count_nothing():
     assert torch.equal(ops.fused_bias_act_bwd(g, x, b), ops.fused_bias_act_bwd_ref(g, x, b))
     k6 = tuple(map(t, _modconv_act_args(2, 4, 4, 3)))
     assert torch.equal(ops.modconv_act(*k6), ops.modconv_act_ref(*k6))
+    fu, fd = t(rand((12,), 5)), t(rand((12,), 6))
+    xf = t(rand((2, 4, 13, 13), 7))
+    assert torch.equal(ops.filtered_lrelu_act(xf, fu, fd, b, up=2, down=2, padding=(9, 8, 9, 8)),
+                       ops.filtered_lrelu_ref(xf, fu, fd, b, up=2, down=2, padding=(9, 8, 9, 8)))
     assert ops.launch_counts() == {
         "fused_bias_act": 0, "fused_bias_act_bwd": 0, "modconv_epilogue": 0, "convt_blur_act": 0, "modconv_act": 0,
+        "filtered_lrelu_act": 0,
     }
 
 
@@ -473,12 +478,15 @@ def test_wrappers_raise_on_other_devices():
         ops.modconv_act(x, torch.empty((2, 4), device="meta"), torch.empty((4, 4, 3, 3), device="meta"),
                         torch.empty((2, 4), device="meta"), torch.empty((1, 1, 3, 3), device="meta"),
                         torch.empty((1,), device="meta"), b)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.filtered_lrelu_act(torch.empty((2, 4, 13, 13), device="meta"), torch.empty((12,), device="meta"),
+                               torch.empty((12,), device="meta"), b, up=2, down=2, padding=(9, 8, 9, 8))
 
 
 def test_build_command_names_every_source_and_the_hopper_target():
     names = [p.name for p in _build.sources()]
-    assert names == ["convt_blur_act.cu", "fused_bias_act.cu", "launch_floor.cu", "modconv_act.cu",
-                     "modconv_epilogue.cu"]
+    assert names == ["convt_blur_act.cu", "filtered_lrelu.cu", "fused_bias_act.cu", "launch_floor.cu",
+                     "modconv_act.cu", "modconv_epilogue.cu"]
     flags = " ".join(_build.NVCC_FLAGS)
     assert "-gencode arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
     out = _build.build_path()
@@ -487,7 +495,7 @@ def test_build_command_names_every_source_and_the_hopper_target():
     assert set(_build.SIGNATURES) == {
         "rick_fused_bias_act", "rick_fused_bias_act_bf16", "rick_fused_bias_act_bwd", "rick_modconv_epilogue",
         "rick_modconv_epilogue_bf16", "rick_convt_blur_act_stage", "rick_empty_launch",
-        "rick_fused_bias_act_bf16_rows", "rick_modconv_epilogue_bf16_rows", "rick_modconv_act",
+        "rick_fused_bias_act_bf16_rows", "rick_modconv_epilogue_bf16_rows", "rick_modconv_act", "rick_filtered_lrelu",
     }
 
 

@@ -167,7 +167,9 @@ def test_image_and_every_layer_match_the_oracle(models):
 def test_fast_route_is_the_plain_path_on_the_cpu(models):
     """fast=True sends each 3x3 conv through `ops.modconv_act` on an input
     padded by 1 (on the CPU its plain version), with the bias in its
-    epilogue, slope 1 and gain 1: 1e-6 of max|plain| (the same convolution,
+    epilogue, slope 1 and gain 1, and the 14 filtered leaky ReLUs through
+    `ops.filtered_lrelu_act` (K7; on the CPU the plain chain), ToRGB's
+    through `ops.filtered_lrelu`: 1e-6 of max|plain| (the same convolution,
     in another order of additions at most)."""
     g, _ = models
     z = torch.randn((2, 512), generator=torch.Generator().manual_seed(3))
@@ -176,7 +178,8 @@ def test_fast_route_is_the_plain_path_on_the_cpu(models):
             fast, _ = g([z], fast=True)
             calls = {k: c for k, (c, _) in trace.counters().items()}
         plain, _ = g([z])
-    assert calls == {"ops.modconv_act": 14, "ops.filtered_lrelu": 15, "ops.fused_bias_act": 2}
+    assert calls == {"ops.modconv_act": 14, "ops.filtered_lrelu_act": 14, "ops.filtered_lrelu": 1,
+                     "ops.fused_bias_act": 2}
     assert _rel(fast, plain) <= 1e-6
 
 
@@ -228,6 +231,81 @@ def test_filtered_lrelu_in_blocks_of_channels(monkeypatch):
     assert torch.allclose(ops.filtered_lrelu(x, fu, fd, b, **kw), whole, rtol=0, atol=1e-6 * float(whole.abs().max()))
     assert torch.allclose(ops.filtered_lrelu(x, fu, fd, None, **kw), whole_nb, rtol=0,
                           atol=1e-6 * float(whole_nb.abs().max()))
+
+
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "no_bias"])
+@pytest.mark.parametrize("layer", FFHQU256.layers()[:-1], ids=lambda x: x.name)
+def test_filtered_lrelu_act_is_the_chain_at_each_filtered_layer(layer, bias):
+    """K7's wrapper on a CPU tensor at each of the 256px configuration's 14
+    filtered layers (its up, down, taps, padding, filters and input side; 1
+    image of 2 channels): the plain chain, bitwise, and NVlabs' reference
+    within 1e-6 of max|oracle| (f32 sums in another order); with the clamp
+    reached, and the output side the layer's."""
+    gen = torch.Generator().manual_seed(int(layer.name[1:].split("_")[0]))
+    side = layer.in_size + layer.kernel - 1  # the full-padding conv's output
+    x = torch.randn((1, 2, side, side), generator=gen) * 100
+    b = torch.randn((2,), generator=gen) if bias else None
+    # the layer's filters, as the model builds them
+    fu = kaiser_lowpass(layer.up_taps, layer.in_cutoff, layer.in_half_width * 2, layer.tmp_sampling_rate)
+    fd = kaiser_lowpass(layer.down_taps, layer.out_cutoff, layer.out_half_width * 2, layer.tmp_sampling_rate)
+    fu, fd = (torch.as_tensor(f, dtype=torch.float32) for f in (fu, fd))
+    kw = dict(up=layer.up, down=layer.down, padding=layer.padding, gain=2**0.5, slope=0.2, clamp=256.0)
+    ops.reset_launch_counts()
+    got = ops.filtered_lrelu_act(x, fu, fd, b, **kw)
+    assert got.shape == (1, 2, layer.out_size, layer.out_size)
+    assert torch.equal(got, ops.filtered_lrelu_ref(x, fu, fd, b, **kw))
+    assert _rel(got, oracle.filtered_lrelu(x, fu, fd, b, **kw)) <= 1e-6
+    assert bool((got.abs() > 100).any()) and ops.filtered_lrelu_act.launches == 0
+
+
+def test_filtered_lrelu_act_refusals():
+    """K7's wrapper raises where the kernel would not take the call, on the
+    CPU as on the card: under autograd, on another dtype, on up/down/taps
+    outside up 2 or 4 with 6 up taps and down 2 with 12 taps, on a bias or
+    padding of the wrong size."""
+    x, fu, fd, b = _flrelu_case(7, 2, 2, channels=3)
+    kw = dict(up=2, down=2, padding=(9, 8, 9, 8), clamp=256.0)
+    ops.filtered_lrelu_act(x, fu, fd, b, **kw)
+    with pytest.raises(NotImplementedError):
+        ops.filtered_lrelu_act(x.clone().requires_grad_(True), fu, fd, b, **kw)
+    with pytest.raises(NotImplementedError):
+        ops.filtered_lrelu_act(x, fu, fd, b.clone().requires_grad_(True), **kw)
+    with torch.no_grad():
+        ops.filtered_lrelu_act(x.clone().requires_grad_(True), fu, fd, b, **kw)
+    with pytest.raises(ValueError, match="dtype"):
+        ops.filtered_lrelu_act(x.double(), fu, fd, b, **kw)
+    with pytest.raises(ValueError, match="dtype"):
+        ops.filtered_lrelu_act(x, fu.double(), fd, b, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.filtered_lrelu_act(x.transpose(2, 3), fu, fd, b, **kw)
+    for up, down in ((1, 2), (3, 2), (8, 2), (2, 1), (2, 4), (4, 4)):
+        with pytest.raises(ValueError, match="the kernel takes up"):
+            ops.filtered_lrelu_act(x, fu, fd, b, **dict(kw, up=up, down=down))
+    with pytest.raises(ValueError, match="fu"):
+        ops.filtered_lrelu_act(x, fu, fd, b, **dict(kw, up=4, padding=(-6, -9, -6, -9)))
+    with pytest.raises(ValueError, match="fd"):
+        ops.filtered_lrelu_act(x, fu, fd[:6].contiguous(), b, **kw)
+    with pytest.raises(ValueError, match="b "):
+        ops.filtered_lrelu_act(x, fu, fd, b[:2].contiguous(), **kw)
+    with pytest.raises(ValueError, match="padding"):
+        ops.filtered_lrelu_act(x, fu, fd, b, **dict(kw, padding=(9, 8)))
+    with pytest.raises(ValueError, match="no output"):
+        ops.filtered_lrelu_act(x, fu, fd, b, **dict(kw, padding=(-40, -40, 0, 0)))
+
+
+def test_filtered_lrelu_act_work_counts_the_polyphase_passes():
+    """K7's bytes and operations (`tools/roofline.py`), which its bound in
+    `chip_smoke.py` reads, at layer 10 of the 256px chunk (batch 100): the
+    counts written out, and the bound they give, 2.219 ms by operations."""
+    from rick_tpu_torch.tools.roofline import bound, filtered_lrelu_work
+
+    n, c, h, m, o = 100, 128, 150, 562, 276  # input, intermediate and output sides
+    nbytes, ops_ = filtered_lrelu_work(n, c, h, h, o, o, 4, 2, 24, 12, (-6, -9, -6, -9))
+    assert nbytes == 4 * n * c * (h * h + o * o)
+    assert ops_ == n * c * (2 * ((h * m + m * m) * 6 + (m * o + o * o) * 12) + 4 * m * m)
+    ms, by = bound(nbytes, ops_)
+    assert by == "operations" and round(ms, 3) == 2.219
+    assert FLRELU.output_size(h, 4, 2, 24, 12, -6, -9) == o
 
 
 def test_filtered_lrelu_double_backward():
